@@ -1,0 +1,4 @@
+from repro_torch.configs.base import CODECS, FedConfig, validate_codec
+from repro_torch.configs.paper_tasks import HyperRepConfig
+
+__all__ = ["CODECS", "FedConfig", "HyperRepConfig", "validate_codec"]
