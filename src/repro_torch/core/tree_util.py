@@ -123,14 +123,18 @@ class TreeBufferSpec:
 
 def tree_buffer_spec(tree, *, align: int = 128,
                      stacked: bool = False) -> TreeBufferSpec:
-    """The spec of one flat row. With ``stacked`` the leaves carry a leading
-    client axis, which the spec leaves out: it describes one client's row."""
+    """The spec of one flat row, padded to ``align``. With ``stacked`` the
+    leaves carry a leading client axis, which the spec leaves out: it
+    describes one client's row, unpadded (the kernels mask ragged rows)."""
     leaves = tree_leaves(tree)
     cut = 1 if stacked else 0
     shapes = tuple(tuple(l.shape)[cut:] for l in leaves)
     dtypes = tuple(l.dtype for l in leaves)
     size = sum(math.prod(s) for s in shapes)
-    padded = size + (-size) % align if size else align
+    if stacked:
+        padded = size
+    else:
+        padded = size + (-size) % align if size else align
     return TreeBufferSpec(tree_structure(tree), shapes, dtypes, size, padded)
 
 
@@ -163,20 +167,15 @@ def tree_unpack(flat, spec: TreeBufferSpec):
     return tree_unflatten(spec.treedef, leaves)
 
 
-def tree_pack_stacked(tree, spec: TreeBufferSpec = None, *,
-                      align: int = 128):
-    """Pack a tree stacked on a leading client axis into ``[M, padded]``:
-    row m is client m's leaves, flattened and concatenated as
-    :func:`tree_pack` lays out one tree. ``spec`` describes one row."""
+def tree_pack_stacked(tree, spec: TreeBufferSpec = None):
+    """Pack a tree stacked on a leading client axis into ``[M, n]`` f32,
+    with no padding: row m is client m's leaves, flattened and concatenated
+    as :func:`tree_pack` lays out one tree. ``spec`` describes one row."""
     if spec is None:
-        spec = tree_buffer_spec(tree, align=align, stacked=True)
+        spec = tree_buffer_spec(tree, stacked=True)
     leaves = tree_leaves(tree)
     m = leaves[0].shape[0]
-    parts = [l.reshape(m, -1).float() for l in leaves]
-    pad = spec.padded_size - spec.size
-    if pad:
-        parts.append(torch.zeros((m, pad), device=leaves[0].device))
-    return torch.cat(parts, dim=1), spec
+    return torch.cat([l.reshape(m, -1).float() for l in leaves], dim=1), spec
 
 
 def tree_unpack_stacked(flat, spec: TreeBufferSpec):

@@ -1,46 +1,22 @@
 """Round engine: q local steps then the sync, as one call per round.
 
 AdaFBiO's communication saving is structural: q local steps per sync round
-(paper §4, Remark 2). ``make_round_step`` rolls a whole round into one
-function over the q per-step batches and draws, stacked on a leading axis,
-so a later change can capture the round as one CUDA graph. The step counter
-``t`` rides in the server state as a device tensor, exactly as the eager
-loop carries it, so both engines see the same schedules and draws.
-
-Parity guarantee: ``make_round_step(local, sync, q)(states, server,
-batches_q, draws_q)`` computes exactly ``sync(*local(...q times...))``.
+(paper §4, Remark 2). The scan engine (``FedDriver.round_segment``) runs a
+whole round over the q per-step batches and draws, stacked on a leading axis
+by :func:`stack_round_batches`. The step counter ``t`` rides in the server
+state as a device tensor, exactly as the eager loop carries it, so both
+engines see the same schedules and draws.
 """
 from __future__ import annotations
 
 from typing import Any, Callable
 
-from repro_torch.core.tree_util import tree_index, tree_stack
+from repro_torch.core.tree_util import tree_stack
 
 ENGINES = ("eager", "scan")
 
 
-def make_round_step(local_step: Callable, sync_step: Callable,
-                    q: int) -> Callable:
-    """Build ``round(states, server, batches_q, draws_q) -> (states,
-    server)``.
-
-    ``local_step(states, server, batch, draws)`` and ``sync_step(states,
-    server)`` are the per-step functions; ``batches_q`` and ``draws_q`` are
-    stacked on a leading axis of (at least) ``q`` steps.
-    """
-    if q < 1:
-        raise ValueError(f"round needs q >= 1 local steps, got {q}")
-
-    def round_step(states, server, batches_q, draws_q):
-        for j in range(q):
-            states, server = local_step(states, server,
-                                        tree_index(batches_q, j), draws_q[j])
-        return sync_step(states, server)
-
-    return round_step
-
-
 def stack_round_batches(batch_fn: Callable[[int], Any], t0: int, q: int):
     """Stack ``batch_fn(t0) .. batch_fn(t0+q-1)`` on a new leading axis —
-    the layout ``make_round_step`` expects."""
+    the layout ``FedDriver.round_segment`` expects."""
     return tree_stack([batch_fn(t0 + j) for j in range(q)])

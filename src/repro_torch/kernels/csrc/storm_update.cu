@@ -44,56 +44,55 @@ __device__ __forceinline__ float adafbio_one(float p, float w, float a,
   return __fsub_rn(p, __fmul_rn(lr_eta, upd));
 }
 
-// Flat pass over all M*n elements (STORM is elementwise over the buffer).
-__global__ void storm_vec4_kernel(const float4* __restrict__ gn,
-                                  const float4* __restrict__ go,
-                                  const float4* __restrict__ est,
-                                  const float* __restrict__ beta,
-                                  float4* __restrict__ out, int64_t n4) {
+// Flat pass over all M*n elements (STORM is elementwise over the buffer):
+// float4 over the first n4 quads, then the masked scalar tail [4*n4, total).
+// The host passes n4 = 0 when a pointer is not 16-byte aligned.
+__global__ void storm_kernel(const float* __restrict__ gn,
+                             const float* __restrict__ go,
+                             const float* __restrict__ est,
+                             const float* __restrict__ beta,
+                             float* __restrict__ out, int64_t n4,
+                             int64_t total) {
   const float omb = __fsub_rn(1.0f, beta[0]);
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
-       i += stride) {
-    float4 a = gn[i], b = go[i], e = est[i], r;
+  const float4* gn4 = reinterpret_cast<const float4*>(gn);
+  const float4* go4 = reinterpret_cast<const float4*>(go);
+  const float4* est4 = reinterpret_cast<const float4*>(est);
+  float4* out4 = reinterpret_cast<float4*>(out);
+  for (int64_t i = tid; i < n4; i += stride) {
+    float4 a = gn4[i], b = go4[i], e = est4[i], r;
     r.x = storm_one(a.x, b.x, e.x, omb);
     r.y = storm_one(a.y, b.y, e.y, omb);
     r.z = storm_one(a.z, b.z, e.z, omb);
     r.w = storm_one(a.w, b.w, e.w, omb);
-    out[i] = r;
+    out4[i] = r;
   }
-}
-
-__global__ void storm_scalar_kernel(const float* __restrict__ gn,
-                                    const float* __restrict__ go,
-                                    const float* __restrict__ est,
-                                    const float* __restrict__ beta,
-                                    float* __restrict__ out, int64_t begin,
-                                    int64_t end) {
-  const float omb = __fsub_rn(1.0f, beta[0]);
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = begin + (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       i < end; i += stride) {
+  for (int64_t i = 4 * n4 + tid; i < total; i += stride) {
     out[i] = storm_one(gn[i], go[i], est[i], omb);
   }
 }
 
 // One grid row (blockIdx.y) per client row; `a` is the same [n] row for all.
-__global__ void adafbio_vec4_kernel(const float* __restrict__ p,
-                                    const float* __restrict__ w,
-                                    const float* __restrict__ a,
-                                    const float* __restrict__ lr_eta_ptr,
-                                    const float* __restrict__ rho_ptr,
-                                    float* __restrict__ out, int64_t n) {
+// float4 over the first n4 quads of the row, then the masked scalar tail
+// [4*n4, n). The host passes n4 = 0 unless n % 4 == 0 and every pointer is
+// 16-byte aligned (then every row start is aligned too).
+__global__ void adafbio_kernel(const float* __restrict__ p,
+                               const float* __restrict__ w,
+                               const float* __restrict__ a,
+                               const float* __restrict__ lr_eta_ptr,
+                               const float* __restrict__ rho_ptr,
+                               float* __restrict__ out, int64_t n,
+                               int64_t n4) {
   const float lr_eta = lr_eta_ptr[0], rho = rho_ptr[0];
   const int64_t row = (int64_t)blockIdx.y * n;
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   const float4* p4 = reinterpret_cast<const float4*>(p + row);
   const float4* w4 = reinterpret_cast<const float4*>(w + row);
   const float4* a4 = reinterpret_cast<const float4*>(a);
   float4* o4 = reinterpret_cast<float4*>(out + row);
-  const int64_t n4 = n / 4;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
-       i += stride) {
+  for (int64_t i = tid; i < n4; i += stride) {
     float4 pv = p4[i], wv = w4[i], av = a4[i], r;
     r.x = adafbio_one(pv.x, wv.x, av.x, lr_eta, rho);
     r.y = adafbio_one(pv.y, wv.y, av.y, lr_eta, rho);
@@ -101,19 +100,7 @@ __global__ void adafbio_vec4_kernel(const float* __restrict__ p,
     r.w = adafbio_one(pv.w, wv.w, av.w, lr_eta, rho);
     o4[i] = r;
   }
-}
-
-__global__ void adafbio_scalar_kernel(const float* __restrict__ p,
-                                      const float* __restrict__ w,
-                                      const float* __restrict__ a,
-                                      const float* __restrict__ lr_eta_ptr,
-                                      const float* __restrict__ rho_ptr,
-                                      float* __restrict__ out, int64_t n) {
-  const float lr_eta = lr_eta_ptr[0], rho = rho_ptr[0];
-  const int64_t row = (int64_t)blockIdx.y * n;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
+  for (int64_t i = 4 * n4 + tid; i < n; i += stride) {
     out[row + i] = adafbio_one(p[row + i], w[row + i], a[i], lr_eta, rho);
   }
 }
@@ -139,24 +126,12 @@ int storm_update_f32(const float* g_new, const float* g_old, const float* est,
                      const float* beta, float* out, int64_t total,
                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int64_t vec_end = 0;
-  if (aligned16(g_new) && aligned16(g_old) && aligned16(est) &&
-      aligned16(out)) {
-    const int64_t n4 = total / 4;
-    if (n4 > 0) {
-      storm_vec4_kernel<<<blocks_for(n4, kMaxBlocks), kThreads, 0, s>>>(
-          reinterpret_cast<const float4*>(g_new),
-          reinterpret_cast<const float4*>(g_old),
-          reinterpret_cast<const float4*>(est), beta,
-          reinterpret_cast<float4*>(out), n4);
-    }
-    vec_end = n4 * 4;
-  }
-  if (vec_end < total) {
-    storm_scalar_kernel<<<blocks_for(total - vec_end, kMaxBlocks), kThreads,
-                          0, s>>>(g_new, g_old, est, beta, out, vec_end,
-                                  total);
-  }
+  if (total <= 0) return (int)cudaGetLastError();
+  const bool vec = aligned16(g_new) && aligned16(g_old) && aligned16(est) &&
+                   aligned16(out);
+  const int64_t n4 = vec ? total / 4 : 0;
+  storm_kernel<<<blocks_for(vec ? n4 : total, kMaxBlocks), kThreads, 0, s>>>(
+      g_new, g_old, est, beta, out, n4, total);
   return (int)cudaGetLastError();
 }
 
@@ -169,16 +144,11 @@ int adafbio_update_f32(const float* p, const float* w, const float* a,
   if (rows <= 0 || n <= 0) return (int)cudaGetLastError();
   if (rows > 65535) return (int)cudaErrorInvalidValue;
   const int64_t cap = kMaxBlocks / rows > 0 ? kMaxBlocks / rows : 1;
-  if (n % 4 == 0 && aligned16(p) && aligned16(w) && aligned16(a) &&
-      aligned16(out)) {
-    dim3 grid(blocks_for(n / 4, cap), (unsigned)rows);
-    adafbio_vec4_kernel<<<grid, kThreads, 0, s>>>(p, w, a, lr_eta, rho, out,
-                                                  n);
-  } else {
-    dim3 grid(blocks_for(n, cap), (unsigned)rows);
-    adafbio_scalar_kernel<<<grid, kThreads, 0, s>>>(p, w, a, lr_eta, rho,
-                                                    out, n);
-  }
+  const bool vec = n % 4 == 0 && aligned16(p) && aligned16(w) &&
+                   aligned16(a) && aligned16(out);
+  const int64_t n4 = vec ? n / 4 : 0;
+  dim3 grid(blocks_for(vec ? n4 : n, cap), (unsigned)rows);
+  adafbio_kernel<<<grid, kThreads, 0, s>>>(p, w, a, lr_eta, rho, out, n, n4);
   return (int)cudaGetLastError();
 }
 

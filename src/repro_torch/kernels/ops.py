@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.tree_util import (tree_leaves, tree_map, tree_pack,
+from repro_torch.core.tree_util import (tree_leaves, tree_map,
                                         tree_pack_stacked, tree_unpack_stacked)
 from repro_torch.kernels.storm_update import adafbio_update, storm_update
 
@@ -38,10 +38,11 @@ def adafbio_update_tree(p, w, a, lr_eta, rho):
     """Adaptive update (Eq. 14). ``a`` is one client's tree (the server's
     accumulator); ``p`` and ``w`` are stacked on a leading client axis, or
     are one client's tree, which runs as M = 1."""
-    fl_a, _ = tree_pack(a)
+    one_row = lambda t: tree_map(lambda x: x.unsqueeze(0), t)
+    fl_a = tree_pack_stacked(one_row(a))[0][0]
     single = tree_leaves(p)[0].dim() == tree_leaves(a)[0].dim()
     if single:
-        p, w = (tree_map(lambda x: x.unsqueeze(0), t) for t in (p, w))
+        p, w = one_row(p), one_row(w)
     fl_p, spec = tree_pack_stacked(p)
     fl_w, _ = tree_pack_stacked(w, spec)
     device = fl_p.device

@@ -1,18 +1,17 @@
 """Where one round of the main path spends its time on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_round [--rounds N]
+    PYTHONPATH=src python -m repro_torch.launch.profile_round
 
 Runs AdaFBiO through ``FedDriver.round_segment`` at the main path's
 hyper-representation width (the configuration of ``chip_smoke.py``), times
-steady rounds (the sync, then q local steps) with the host clock around a
-synchronise, then traces one more round with ``torch.profiler``: device busy
+``ROUNDS`` steady rounds (the sync, then q local steps) with the host clock
+around a synchronise, then traces one more round with ``torch.profiler``: device busy
 time (the sum of kernel and copy durations), the device's idle share of the
 traced round, the number of device operations, and the kernels that take
-the most device time. Needs a CUDA device.
+the most device time (the first ``TOP``). Needs a CUDA device.
 """
 from __future__ import annotations
 
-import argparse
 import time
 
 import torch
@@ -25,15 +24,11 @@ from repro_torch.tasks import FedDriver, build_hyperrep
 
 MAIN_PATH = HyperRepConfig(n_clients=8, in_dim=784, hidden=1024,
                            rep_dim=256, n_classes=10, batch=256)
+ROUNDS = 3      # steady rounds timed before the traced one
+TOP = 12        # kernels listed by device time
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--rounds", type=int, default=3,
-                    help="steady rounds timed before the traced one")
-    ap.add_argument("--top", type=int, default=12,
-                    help="kernels listed by device time")
-    args = ap.parse_args(argv)
+def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = MAIN_PATH
@@ -41,7 +36,7 @@ def main(argv=None) -> int:
     drv = FedDriver(task["problem"], cfg.fed, cfg.n_clients, task["batch_fn"],
                     task["init_xy"], engine="scan", device="cuda")
     q = cfg.fed.q
-    draws = drv.draws((args.rounds + 2) * q, seed=0)
+    draws = drv.draws((ROUNDS + 2) * q, seed=0)
     states, server = drv.init_run(0, draws)
 
     def one_round(r):
@@ -53,7 +48,7 @@ def main(argv=None) -> int:
     states, server = one_round(0)            # warm-up: build, allocator
     torch.cuda.synchronize()
     walls = []
-    for r in range(1, args.rounds + 1):
+    for r in range(1, ROUNDS + 1):
         t0 = time.perf_counter()
         states, server = one_round(r)
         torch.cuda.synchronize()
@@ -61,7 +56,7 @@ def main(argv=None) -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        states, server = one_round(args.rounds + 1)
+        states, server = one_round(ROUNDS + 1)
         torch.cuda.synchronize()
         traced = time.perf_counter() - t0
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -77,7 +72,7 @@ def main(argv=None) -> int:
         by_name[e.name][0] += 1
         by_name[e.name][1] += e.time_range.elapsed_us() / 1e3
     for name, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[
-            :args.top]:
+            :TOP]:
         print(f"{ms:9.3f} ms {n:6d}x  {name[:100]}")
     return 0
 

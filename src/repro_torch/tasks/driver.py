@@ -37,10 +37,10 @@ from repro_torch.configs.base import FedConfig
 from repro_torch.core.adafbio import warm_adaptive
 from repro_torch.core.baselines import Algorithm, make_algorithm
 from repro_torch.core.bilevel import BilevelProblem
-from repro_torch.core.tree_util import (tree_bcast_axis0, tree_map,
-                                        tree_mean_axis0, tree_stack)
+from repro_torch.core.tree_util import (tree_bcast_axis0, tree_index,
+                                        tree_map, tree_mean_axis0, tree_stack)
 from repro_torch.fed.compress import codec_from_config, wire_costs
-from repro_torch.fed.round import ENGINES, make_round_step, stack_round_batches
+from repro_torch.fed.round import ENGINES, stack_round_batches
 from repro_torch.fed.topology import StarAggregator
 
 
@@ -172,8 +172,10 @@ class FedDriver:
         round (unless this is round 0), then ``n_steps`` local steps."""
         if sync_first:
             states, server = self._sync_body(states, server)
-        return make_round_step(self._local_body, lambda st, srv: (st, srv),
-                               n_steps)(states, server, batches_q, draws_q)
+        for j in range(n_steps):
+            states, server = self._local_body(
+                states, server, tree_index(batches_q, j), draws_q[j])
+        return states, server
 
     def _record(self, res: RunResult, states, step, samples, comms,
                 bytes_up: int = 0, bytes_down: int = 0):
@@ -189,8 +191,11 @@ class FedDriver:
                              if self.grad_norm_fn else float("nan"))
 
     def _log_round(self, res: RunResult, dt: float):
-        """The first completed round carries the warm-up; keep it out of
-        the steady-state per-round log."""
+        """Log one round's wall-clock: the sync and the local steps, from
+        after its batches are built until the device has finished them (no
+        batch building, no evaluation), the same span in both engines. The
+        first completed round carries the warm-up; keep it out of the
+        steady-state per-round log."""
         if res.compile_seconds == 0.0:
             res.compile_seconds = dt
         else:
@@ -220,8 +225,14 @@ class FedDriver:
 
         res = RunResult(self.alg.name, [], [], [], [], [], 0.0)
         t0 = time.time()
-        r0 = time.time()
         for t in range(total_steps):
+            if t % fed.q == 0:
+                # the round's batches are built before its clock starts, and
+                # evaluations inside the round are taken off it (_log_round)
+                round_batches = [self.batches(s) for s in
+                                 range(t, min(t + fed.q, total_steps))]
+                eval_s = 0.0
+                r0 = time.time()
             if t > 0 and t % fed.q == 0:
                 states, server = self._sync_body(states, server)
                 comms += 1
@@ -230,18 +241,18 @@ class FedDriver:
                 bytes_up += up
                 bytes_down += down
             states, server = self._local_body(states, server,
-                                              self.batches(t),
+                                              round_batches[t % fed.q],
                                               draws.steps[t])
             samples += fed.neumann_k + 2
-            if (t + 1) % fed.q == 0:
-                # per-round wall-clock, comparable with the scan engine's
+            if (t + 1) % fed.q == 0 or t == total_steps - 1:
                 devices.fence(self.device)
-                dt = time.time() - r0
-                self._log_round(res, dt)
-                r0 = time.time()
+                self._log_round(res, time.time() - r0 - eval_s)
             if t % eval_every == 0 or t == total_steps - 1:
+                devices.fence(self.device)
+                e0 = time.time()
                 self._record(res, states, t, samples, comms, bytes_up,
                              bytes_down)
+                eval_s += time.time() - e0
         res.seconds = time.time() - t0
         res.final_avg_state = tree_mean_axis0(states)
         return res

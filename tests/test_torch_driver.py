@@ -8,6 +8,7 @@ different orders through the tanh MLP and its hypergradient, and four
 steps of the adaptive update carry those differences on."""
 import dataclasses
 import functools
+import time
 
 import numpy as np
 import pytest
@@ -165,3 +166,30 @@ def test_standalone_runs_are_seeded_and_engines_agree():
         for x, y in zip(a.final_avg_state.values(),
                         b.final_avg_state.values()):
             torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_round_clock_leaves_out_batches_and_evaluation(engine):
+    """Both engines time the same span of a round: the sync and the local
+    steps, not the building of its batches nor an evaluation inside it. Each
+    batch call and each evaluation sleeps far longer than a round of the tiny
+    problem takes; a clock that held either would exceed the sleep."""
+    nap = 0.25
+    zero = torch.zeros(())
+    consts, theta = _quadratic_pair()
+
+    def slow_batch(c, s):
+        time.sleep(nap)
+        return {"f": zero, "g": zero, "g0": zero, "gi": torch.zeros(2)}
+
+    def slow_metric(x, y):
+        time.sleep(nap)
+        return torch.zeros(())
+    drv = FedDriver(
+        quadratic_bilevel_problem(*map(torch.from_numpy, consts)),
+        FedConfig(q=2, neumann_k=2, theta=theta), n_clients=2,
+        batch_fn=slow_batch, init_xy=lambda g: (torch.ones(8), torch.zeros(6)),
+        metric_fn=slow_metric, engine=engine, device="cpu")
+    res = drv.run(6, seed=0, eval_every=1)
+    assert len(drv.round_seconds) == 2 and res.compile_seconds > 0
+    assert max(drv.round_seconds) < nap, drv.round_seconds

@@ -94,14 +94,19 @@ def test_tree_pack_matches_reference_layout_and_roundtrips():
 
 @pytest.mark.parametrize("align", [1, 128])
 def test_tree_pack_stacked_rows_are_client_packs(align):
+    """Each unpadded row is the reference's pack of that client's tree, up to
+    the reference's zero padding to ``align``."""
     m = 3
     tree = _tree(_rng(1), (m,))
-    flat, spec = tu.tree_pack_stacked(to_torch(tree), align=align)
-    assert flat.shape == (m, spec.padded_size)
+    flat, spec = tu.tree_pack_stacked(to_torch(tree))
+    assert flat.shape == (m, spec.size) and spec.padded_size == spec.size
     for i in range(m):
         one = jax.tree.map(lambda a: jnp.asarray(a[i]), tree)
-        ref_flat, _ = ref_tu.tree_pack(one, align=align)
-        np.testing.assert_array_equal(flat[i].numpy(), np.asarray(ref_flat))
+        ref_flat, ref_spec = ref_tu.tree_pack(one, align=align)
+        assert ref_spec.size == spec.size
+        ref_flat = np.asarray(ref_flat)
+        np.testing.assert_array_equal(flat[i].numpy(), ref_flat[:spec.size])
+        assert not ref_flat[spec.size:].any()
     assert_trees_close(tu.tree_unpack_stacked(flat, spec), tree, rtol=0,
                        atol=0)
 
