@@ -10,22 +10,35 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
 2. builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    into ``build/``, one ``nvcc`` per source, all started together;
 3. kernel phase: holds each kernel against its plain PyTorch version on the
-   card, at the main path's shape [8, 1_066_240], at M = 1, at a ragged n,
-   at a misaligned view and at n < 4; times kernel and plain version with
-   CUDA events (median of 30 launches after warm-up) beside the bound
-   (bytes moved over 3.35 TB/s);
+   card: the update kernels at the main path's shape [8, 1_066_240], at
+   M = 1, at a ragged n, at a misaligned view and at n < 4 (within 1e-6);
+   the int8 codec's quantize and dequantize at the codec path's message
+   [8, 2_173_440] in its 10 leaf segments, at M = 1, at 4 bits, at a ragged
+   n, at two misaligned views (one with n % 4 == 0) and at n < 4 (bit for
+   bit). Times kernel and
+   plain version with CUDA events (median of 30 launches after warm-up)
+   beside the bound (bytes moved over 3.35 TB/s);
 4. main path: ``FedDriver`` (AdaFBiO, ``fused="auto"``) on hyper-
    representation at MNIST width (in 784, hidden 1024, rep 256, 10 classes,
    batch 256, 8 clients: x is 1,066,240 f32 per client), eager and scan
    engines for 4 rounds of q = 8 steps; asserts the kernels' launch counts,
    a finite validation loss and eager == scan;
-5. round checks: one round on the card against the same round on the CPU
+5. codec path: the same at ``codec="int8"`` with error feedback and
+   participation 0.5, eager and scan: one quantize and one dequantize
+   launch per sync, the update kernels' counts as on the main path, a
+   finite loss, eager == scan, and bytes_up as the formula gives them;
+6. population path: 32 clients in a bank, cohorts of 8, participants sync
+   with staleness weights, int8 with error feedback, 4 rounds: one quantize
+   and one dequantize launch per round, a finite loss, bytes as the
+   formulas give them; then broadcast population rounds against the
+   masked path with the same cohorts (within 1e-5), and a topk run;
+7. round checks: one round on the card against the same round on the CPU
    through the plain kernels, stage by stage, beside a float64 witness: at
    a Neumann step theta under 1/L_g (held tight), and at the main path's
    theta = 1 (the card held no farther from the witness than the CPU);
-6. the quadratic quickstart problem, eager and scan, with its grad-norm
+8. the quadratic quickstart problem, eager and scan, with its grad-norm
    trajectory;
-7. one JSON line with every kernel's numbers, then the result line
+9. one JSON line with every kernel's numbers, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Every phase either passes or raises, and the script exits nonzero.
@@ -45,9 +58,15 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 KERNEL_RTOL = 1e-6             # kernel vs plain version, f32
 MAIN_SHAPE = (8, 1_066_240)    # the main path's packed [M, n] x buffer
-SOURCE = "src/repro_torch/kernels/csrc/storm_update.cu"
+MSG_ELEMENTS = 2_173_440       # one client's message at MNIST width
+SOURCES = {"storm_update": "src/repro_torch/kernels/csrc/storm_update.cu",
+           "adafbio_update": "src/repro_torch/kernels/csrc/storm_update.cu",
+           "quantize_stoch": "src/repro_torch/kernels/csrc/quantize.cu",
+           "dequantize": "src/repro_torch/kernels/csrc/quantize.cu"}
 REPLACES = {"storm_update": "src/repro/kernels/storm_update.py:45",
-            "adafbio_update": "src/repro/kernels/storm_update.py:80"}
+            "adafbio_update": "src/repro/kernels/storm_update.py:80",
+            "quantize_stoch": "src/repro/kernels/quantize.py:37",
+            "dequantize": "src/repro/kernels/quantize.py:69"}
 # One round on the card against the same round on the CPU, stage by stage
 # (round_check): each stage starts both devices from the card's state before
 # it, with the same batches and draws, so they differ only in how cuBLAS and
@@ -69,6 +88,12 @@ STAGE_RTOL = 1e-5
 WITNESS_FACTOR = 4.0
 WITNESS_FLOOR = 1e-6
 ENGINE_RTOL = 1e-5             # eager vs scan on the card: the same ops
+# Broadcast population rounds against the masked path with the same
+# cohorts: the same math, but the hypergradient's batched products run over
+# 4 clients instead of 8, so the card may order their sums differently. At
+# CHECK_THETA (under 1/L_g) that stays a rounding difference; at theta 1
+# (section 7 of PERF.md) it would be magnified up to 22 times per Neumann
+# factor, so the comparison runs at CHECK_THETA.
 
 
 def gpu_line():
@@ -149,19 +174,122 @@ def kernel_phase(torch, kern, ref):
     return results
 
 
+def quantize_phase(torch, qkern, ref, ops, segments):
+    """quantize_stoch and dequantize against their plain versions, bit for
+    bit, at every listed shape; returns the numbers at the codec path's
+    message shape [8, sum(segments)]."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    cases = [("main", 8, segments, 0, 8), ("M=1", 1, segments, 0, 8),
+             ("bits=4", 8, segments, 0, 4),
+             ("ragged", 8, (1, 999_999, 3), 0, 8),
+             ("misaligned", 1, (500_000, 500_003), 1, 8),
+             # n % 4 == 0: only the alignment test keeps float4 off
+             ("misaligned4", 2, (500_000, 500_004), 1, 8),
+             ("n<4", 3, (1, 2), 0, 8)]
+    results = {}
+    for label, m, segs, offset, bits in cases:
+        n, qmax = sum(segs), (1 << (bits - 1)) - 1
+        offsets = [0]
+        for size in segs:
+            offsets.append(offsets[-1] + size)
+        flat = torch.randn(m * n + offset, generator=gen, device=dev)
+        x = flat[offset:].view(m, n)
+        for i, (a, b) in enumerate(zip(offsets, offsets[1:])):
+            x[:, a:b] *= 10.0 ** (i % 5 - 2)
+        u = torch.rand((m, n), generator=gen, device=dev)
+        table = torch.tensor(offsets, dtype=torch.int64, device=dev)
+        scale = ops.leaf_scales(x, offsets, qmax)
+        q = qkern.quantize_stoch(x, u, scale, table, qmax)
+        q_in = q
+        if offset:
+            qbuf = torch.empty(m * n + offset, dtype=torch.int8, device=dev)
+            qbuf[offset:].copy_(q.view(-1))
+            q_in = qbuf[offset:].view(m, n)
+        dq = qkern.dequantize(q_in, scale, table)
+        q_ref = ref.quantize_stoch_ref(x, u, scale, table, qmax)
+        dq_ref = ref.dequantize_ref(q, scale, table)
+        torch.cuda.synchronize()
+        errs = {"quantize_stoch": (q.int() - q_ref.int()).abs().max().item(),
+                "dequantize": (dq - dq_ref).abs().max().item()}
+        exact = {"quantize_stoch": torch.equal(q, q_ref),
+                 "dequantize": torch.equal(dq.view(torch.int32),
+                                           dq_ref.view(torch.int32))}
+        calls = {
+            "quantize_stoch": (
+                lambda: qkern.quantize_stoch(x, u, scale, table, qmax),
+                lambda: ref.quantize_stoch_ref(x, u, scale, table, qmax),
+                9 * m * n),
+            "dequantize": (
+                lambda: qkern.dequantize(q, scale, table),
+                lambda: ref.dequantize_ref(q, scale, table),
+                5 * m * n)}
+        for name, (fast, plain, nbytes) in calls.items():
+            # the per-(row, segment) scales and the offset table are read
+            # once too
+            nbytes += 4 * m * len(segs) + 8 * (len(segs) + 1)
+            row = {"max_abs_err": errs[name]}
+            if label == "main":
+                row.update(ms=time_ms(torch, fast), plain_ms=time_ms(
+                    torch, plain), bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                    bytes=nbytes)
+                results[name] = row
+            print(f"kernel {name:15s} {label:10s} [{m}, {n}] {bits} bits, "
+                  f"{len(segs)} segments: max_abs_err {errs[name]:.3e}, "
+                  f"bit-exact {exact[name]} "
+                  + (f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f}"
+                     f" ms bound {row['bound_ms']:.4f} ms"
+                     if label == "main" else ""), flush=True)
+            if not exact[name]:
+                raise AssertionError(f"{name} differs from its plain "
+                                     f"version at {label} [{m}, {n}]")
+    return results
+
+
 def rel_err(torch, got, want):
     """Normwise relative error of ``got`` against ``want``, on the host."""
     got, want = got.double().cpu(), want.double().cpu()
     return ((got - want).norm() / max(want.norm().item(), 1e-30)).item()
 
 
-def main_path(torch, kern):
+def reset_launches(kerns):
+    for k in kerns:
+        k.reset_launches()
+
+
+def launch_counts(kerns):
+    counts = {}
+    for k in kerns:
+        counts.update(k.launches)
+    return counts
+
+
+def steady_ms(drv):
+    return 1e3 * sum(drv.round_seconds) / len(drv.round_seconds)
+
+
+def mnist_width(n_clients=8):
     from repro_torch.configs import HyperRepConfig
+    return HyperRepConfig(n_clients=n_clients, in_dim=784, hidden=1024,
+                          rep_dim=256, n_classes=10, batch=256)
+
+
+def message_segments(cfg):
+    """Leaf sizes of one client's message in packed order (dict keys
+    sorted): v (y-shaped), w (x-shaped), x, y; x is {b1, b2, w1, w2}, y the
+    heads of every client."""
+    x = [cfg.hidden, cfg.rep_dim, cfg.in_dim * cfg.hidden,
+         cfg.hidden * cfg.rep_dim]
+    y = [cfg.n_clients * cfg.rep_dim * cfg.n_classes]
+    return y + x + x + y
+
+
+def main_path(torch, kerns):
     from repro_torch.core.tree_util import tree_leaves
     from repro_torch.tasks import FedDriver, build_hyperrep
 
-    cfg = HyperRepConfig(n_clients=8, in_dim=784, hidden=1024, rep_dim=256,
-                         n_classes=10, batch=256)
+    cfg = mnist_width()
     fed = cfg.fed
     task = build_hyperrep(cfg, device="cuda")
     rounds, q = 4, fed.q
@@ -171,22 +299,23 @@ def main_path(torch, kern):
         drv = FedDriver(task["problem"], fed, cfg.n_clients, task["batch_fn"],
                         task["init_xy"], metric_fn=task["val_loss"],
                         engine=engine, device="cuda")
-        kern.reset_launches()
+        reset_launches(kerns)
         res = drv.run(steps, seed=0, eval_every=q)
         torch.cuda.synchronize()
-        counts = dict(kern.launches)
+        counts = launch_counts(kerns)
         syncs = res.comms[-1]
-        want = {"storm_update": 2 * steps, "adafbio_update": steps + syncs}
+        want = {"storm_update": 2 * steps, "adafbio_update": steps + syncs,
+                "quantize_stoch": 0, "dequantize": 0}
         if counts != want:
             raise AssertionError(f"{engine}: launches {counts}, want {want}")
         if not all(math.isfinite(v) for v in res.metric):
             raise AssertionError(f"{engine}: validation loss {res.metric}")
-        steady = drv.round_seconds
-        ms_round = 1e3 * sum(steady) / len(steady)
+        ms_round = steady_ms(drv)
         print(f"main path {engine:5s}: {steps} steps, {syncs} syncs, "
               f"launches {counts}; first round {res.compile_seconds:.3f} s; "
               f"steady {ms_round:.2f} ms/round, "
-              f"{q * 1e3 / ms_round:.2f} steps/s over {len(steady)} rounds; "
+              f"{q * 1e3 / ms_round:.2f} steps/s over "
+              f"{len(drv.round_seconds)} rounds; "
               f"val loss {[round(v, 5) for v in res.metric]}", flush=True)
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
@@ -199,6 +328,150 @@ def main_path(torch, kern):
         raise AssertionError("eager and scan final states disagree")
 
     return launches, task, cfg
+
+
+def codec_path(torch, kerns, task, cfg):
+    """The masked path with the int8 codec and error feedback, eager and
+    scan: one quantize and one dequantize launch per sync."""
+    from repro_torch.core.tree_util import tree_leaves
+    from repro_torch.tasks import FedDriver
+
+    fed = dataclasses.replace(cfg.fed, codec="int8", error_feedback=True)
+    rounds, q = 4, fed.q
+    steps = rounds * q
+    active = max(int(0.5 * cfg.n_clients), 1)
+    launches, finals = {}, {}
+    for engine in ("eager", "scan"):
+        drv = FedDriver(task["problem"], fed, cfg.n_clients, task["batch_fn"],
+                        task["init_xy"], metric_fn=task["val_loss"],
+                        participation=0.5, engine=engine, device="cuda")
+        reset_launches(kerns)
+        res = drv.run(steps, seed=0, eval_every=q)
+        torch.cuda.synchronize()
+        counts = launch_counts(kerns)
+        syncs = res.comms[-1]
+        want = {"storm_update": 2 * steps, "adafbio_update": steps + syncs,
+                "quantize_stoch": syncs, "dequantize": syncs}
+        if counts != want:
+            raise AssertionError(f"codec {engine}: launches {counts}, "
+                                 f"want {want}")
+        if not all(math.isfinite(v) for v in res.metric):
+            raise AssertionError(f"codec {engine}: val loss {res.metric}")
+        # int8 at 8 bits: each leaf's levels, one byte each, and its scale
+        want_up = syncs * active * (MSG_ELEMENTS + 4 * 10)
+        if res.bytes_up[-1] != want_up:
+            raise AssertionError(f"codec {engine}: bytes_up "
+                                 f"{res.bytes_up[-1]}, want {want_up}")
+        print(f"codec path int8 {engine:5s}: {syncs} syncs, launches "
+              f"{counts}; bytes_up {res.bytes_up[-1]} bytes_down "
+              f"{res.bytes_down[-1]}; first round "
+              f"{res.compile_seconds:.3f} s; steady {steady_ms(drv):.2f} "
+              f"ms/round over {len(drv.round_seconds)} rounds; val loss "
+              f"{[round(v, 5) for v in res.metric]}", flush=True)
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        finals[engine] = res.final_avg_state
+    worst = max(rel_err(torch, a, b) for a, b in zip(
+        tree_leaves(finals["scan"]), tree_leaves(finals["eager"])))
+    print(f"codec path eager vs scan final state: max normwise rel err "
+          f"{worst:.3e} (limit {ENGINE_RTOL})", flush=True)
+    if not worst <= ENGINE_RTOL:
+        raise AssertionError("codec path: eager and scan disagree")
+    return launches
+
+
+def population_path(torch, kerns, cfg):
+    """32 clients in a bank, cohorts of 8, participants sync with staleness
+    weights, int8 with error feedback: one quantize and one dequantize
+    launch per round."""
+    from repro_torch.configs import PopulationConfig
+    from repro_torch.tasks import FedDriver, build_hyperrep
+
+    cfg32 = mnist_width(32)
+    n_msg = sum(message_segments(cfg32))
+    task = build_hyperrep(cfg32, device="cuda")
+    fed = dataclasses.replace(cfg.fed, codec="int8", error_feedback=True)
+    pcfg = PopulationConfig(n=32, cohort=8, sync_mode="participants",
+                            staleness_decay=0.5)
+    rounds, q = 4, fed.q
+    steps = rounds * q
+    drv = FedDriver(task["problem"], fed, 32, task["batch_fn"],
+                    task["init_xy"], metric_fn=task["val_loss"],
+                    population=pcfg, device="cuda")
+    reset_launches(kerns)
+    res = drv.run(steps, seed=0, eval_every=q)
+    torch.cuda.synchronize()
+    counts = launch_counts(kerns)
+    syncs = res.comms[-1]
+    want = {"storm_update": 2 * steps, "adafbio_update": steps + syncs,
+            "quantize_stoch": rounds, "dequantize": rounds}
+    if counts != want:
+        raise AssertionError(f"population: launches {counts}, want {want}")
+    if not all(math.isfinite(v) for v in res.metric):
+        raise AssertionError(f"population: val loss {res.metric}")
+    # a uniform cohort has 8 distinct clients: 8 messages up, and in
+    # participants mode 8 full-precision states down, per sync
+    want_bytes = (syncs * 8 * (n_msg + 4 * 10), syncs * 8 * 4 * n_msg)
+    got_bytes = (res.bytes_up[-1], res.bytes_down[-1])
+    if got_bytes != want_bytes:
+        raise AssertionError(f"population: bytes {got_bytes}, "
+                             f"want {want_bytes}")
+    print(f"population path (N 32, C 8, participants, int8+EF): {rounds} "
+          f"rounds, launches {counts}; bytes up/down {got_bytes}; first "
+          f"round {res.compile_seconds:.3f} s; steady {steady_ms(drv):.2f} "
+          f"ms/round over {len(drv.round_seconds)} rounds; val loss "
+          f"{[round(v, 5) for v in res.metric]}", flush=True)
+    return counts
+
+
+def broadcast_vs_masked(torch, task, cfg):
+    """Broadcast population rounds against the masked path with the same
+    cohorts (the reference's invariant, tests/test_population.py:28)."""
+    from repro_torch.configs import PopulationConfig
+    from repro_torch.core.tree_util import tree_leaves
+    from repro_torch.fed.sampling import UniformSampler
+    from repro_torch.tasks import FedDriver
+
+    fed = dataclasses.replace(cfg.fed, theta=CHECK_THETA)
+    sampler = UniformSampler(cfg.n_clients, 4, seed=5)
+    finals = {}
+    for mode in ("population", "masked"):
+        kw = (dict(population=PopulationConfig(n=cfg.n_clients, cohort=4))
+              if mode == "population" else dict(engine="scan"))
+        drv = FedDriver(task["problem"], fed, cfg.n_clients, task["batch_fn"],
+                        task["init_xy"], sampler=sampler, device="cuda", **kw)
+        finals[mode] = drv.run(2 * fed.q, seed=0,
+                               eval_every=2 * fed.q).final_avg_state
+    worst = max(rel_err(torch, a, b) for a, b in zip(
+        tree_leaves(finals["population"]), tree_leaves(finals["masked"])))
+    print(f"broadcast population vs masked (theta {CHECK_THETA}, 2 rounds): "
+          f"max normwise rel err {worst:.3e} (limit {ENGINE_RTOL})",
+          flush=True)
+    if not worst <= ENGINE_RTOL:
+        raise AssertionError("broadcast population and masked disagree")
+
+
+def topk_run(torch, task, cfg):
+    from repro_torch.tasks import FedDriver
+
+    fed = dataclasses.replace(cfg.fed, codec="topk", topk_frac=0.1,
+                              error_feedback=True)
+    drv = FedDriver(task["problem"], fed, cfg.n_clients, task["batch_fn"],
+                    task["init_xy"], metric_fn=task["val_loss"],
+                    participation=0.5, engine="scan", device="cuda")
+    res = drv.run(2 * fed.q, seed=0, eval_every=fed.q)
+    syncs = res.comms[-1]
+    kept = sum(min(max(int(round(0.1 * s)), 1), s)
+               for s in message_segments(cfg))
+    want_up = syncs * max(int(0.5 * cfg.n_clients), 1) * kept * (4 + 4)
+    if not all(math.isfinite(v) for v in res.metric):
+        raise AssertionError(f"topk: val loss {res.metric}")
+    if res.bytes_up[-1] != want_up:
+        raise AssertionError(f"topk: bytes_up {res.bytes_up[-1]}, "
+                             f"want {want_up}")
+    print(f"topk run (frac 0.1, EF, scan): {syncs} syncs, bytes_up "
+          f"{res.bytes_up[-1]}; val loss {[round(v, 5) for v in res.metric]}",
+          flush=True)
 
 
 def named_leaves(tree, path=""):
@@ -249,6 +522,13 @@ def tree_leaves_of(tree):
     return [leaf for _, leaf in named_leaves(tree)]
 
 
+def lossless_segment(drv, states, server, batches_q, draws_q, **kw):
+    """``drv.round_segment`` without a codec: the messages are the states
+    themselves (``ref`` is unused), no residuals and no noise."""
+    return drv.round_segment(states, server, states, None, batches_q,
+                             draws_q, **kw)[:2]
+
+
 def round_check(torch, task, cfg, fed):
     """One round (the sync, then q local steps) on the card and on the CPU,
     stage by stage: each stage starts both from the card's state before it,
@@ -276,10 +556,11 @@ def round_check(torch, task, cfg, fed):
         args = (states, server, tree_map(lambda a: a[j:j + 1], batches_q))
         d_j = draws.steps[j:j + 1]
         kw = dict(n_steps=1, sync_first=j == 0)
-        out_cpu = cpu.round_segment(*to_host(torch, args), d_j.cpu(), **kw)
-        out_64 = cpu.round_segment(*to_host(torch, args, torch.float64),
-                                   d_j.cpu(), **kw)
-        states, server = gpu.round_segment(*args, d_j, **kw)
+        out_cpu = lossless_segment(cpu, *to_host(torch, args), d_j.cpu(),
+                                   **kw)
+        out_64 = lossless_segment(cpu, *to_host(torch, args, torch.float64),
+                                  d_j.cpu(), **kw)
+        states, server = lossless_segment(gpu, *args, d_j, **kw)
         named = [dict(zip(("state", "server"), out))
                  for out in ((states, server), out_cpu, out_64)]
         names = [n for n, _ in named_leaves(named[0])]
@@ -372,25 +653,37 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import quantize as qkern
     from repro_torch.kernels import storm_update as kern
+    kerns = (kern, qkern)
 
     t0 = time.time()
     libs = _build.build_all()
     print(f"built {sorted(libs)} in {time.time() - t0:.2f} s", flush=True)
 
+    segments = message_segments(mnist_width())
+    if sum(segments) != MSG_ELEMENTS or len(segments) != 10:
+        raise AssertionError(f"message segments {segments}")
     numbers = kernel_phase(torch, kern, ref)
-    launches, task, cfg = main_path(torch, kern)
+    numbers.update(quantize_phase(torch, qkern, ref, ops, segments))
+    launches, task, cfg = main_path(torch, kerns)
+    codec_launches = codec_path(torch, kerns, task, cfg)
+    pop_launches = population_path(torch, kerns, cfg)
+    for name in ("quantize_stoch", "dequantize"):
+        launches[name] = codec_launches[name] + pop_launches[name]
+    broadcast_vs_masked(torch, task, cfg)
+    topk_run(torch, task, cfg)
     round_checks(torch, task, cfg)
     quadratic(torch)
 
     kernels = [{
-        "name": name, "route": "cuda", "source": SOURCE,
+        "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": launches[name],
         "max_abs_err": numbers[name]["max_abs_err"],
         "ms": numbers[name]["ms"], "plain_ms": numbers[name]["plain_ms"],
         "bound_ms": numbers[name]["bound_ms"], "bound_by": "bytes",
-        "library_ms": None} for name in ("storm_update", "adafbio_update")]
+        "library_ms": None} for name in SOURCES]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,29 @@
-"""Federation config: ``FedConfig`` with the JAX package's field names,
-defaults and validation, so ``dataclasses.asdict`` moves a config across."""
+"""Federation configs: ``FedConfig`` and ``PopulationConfig`` with the JAX
+package's field names, defaults and validation, so ``dataclasses.asdict``
+moves a config across."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 CODECS = ("none", "int8", "topk")
+TOPOLOGIES = ("ring", "torus2d", "complete", "erdos")
+DELAY_MODELS = ("uniform", "tiers", "lognormal", "trace")
+
+
+def validate_topology(name: str, er_p: float, time_varying: bool) -> None:
+    """Gossip-topology validation shared by ``PopulationConfig``. Raises
+    ``ValueError``."""
+    if name not in TOPOLOGIES:
+        raise ValueError(f"topology must be one of {TOPOLOGIES}, "
+                         f"got {name!r}")
+    if not 0.0 <= er_p <= 1.0:
+        raise ValueError(f"er_p must be in [0, 1], got {er_p}")
+    if time_varying and name != "erdos":
+        raise ValueError("time_varying resamples an Erdős–Rényi graph every "
+                         "round: the fixed topologies (ring/torus2d/"
+                         "complete) are static by definition — set "
+                         "topology='erdos'")
 
 
 def validate_codec(name: str, bits: int, topk_frac: float) -> None:
@@ -47,11 +66,135 @@ class FedConfig:
     # path elsewhere; "on" forces the flat-buffer path (the kernels' plain
     # versions on the CPU); "off" disables it.
     fused: str = "auto"
-    # ---- communication compression: only "none" is ported so far ----
+    # ---- communication compression (repro_torch.fed.compress) ----
+    # client→server update codec: "none" (full precision), "int8"
+    # (stochastic uniform quantization to codec_bits-bit levels, on the
+    # quantize kernels), "topk" (magnitude sparsification keeping a
+    # topk_frac fraction of each tensor)
     codec: str = "none"
     codec_bits: int = 8
     topk_frac: float = 0.1
+    # error feedback: keep each client's compression residual and fold it
+    # into its next message (EF-SGD; lossy codecs only)
     error_feedback: bool = True
 
     def __post_init__(self):
         validate_codec(self.codec, self.codec_bits, self.topk_frac)
+
+
+def validate_delay_model(name: str, max_delay: int, tier_fracs, tier_delays,
+                         delay_sigma: float) -> None:
+    """Delay-model validation shared by ``PopulationConfig``. Raises
+    ``ValueError``."""
+    if name not in DELAY_MODELS:
+        raise ValueError(f"delay_model must be one of {DELAY_MODELS}, "
+                         f"got {name!r}")
+    if max_delay < 1:
+        raise ValueError(f"max_delay must be >= 1 round, got {max_delay}")
+    if name == "tiers":
+        if len(tier_fracs) != len(tier_delays) or not tier_fracs:
+            raise ValueError(
+                f"tiers need matching non-empty tier_fracs/tier_delays, "
+                f"got {len(tier_fracs)} fracs, {len(tier_delays)} delay "
+                f"ranges")
+        if (any(f <= 0 for f in tier_fracs)
+                or abs(sum(tier_fracs) - 1.0) > 1e-6):
+            raise ValueError(f"tier_fracs must be positive and sum to 1, "
+                             f"got {tier_fracs}")
+        if any(not 1 <= lo <= hi for lo, hi in tier_delays):
+            raise ValueError(f"each tier delay range needs 1 <= lo <= hi "
+                             f"rounds, got {tier_delays}")
+    if name == "lognormal":
+        if delay_sigma < 0:
+            raise ValueError(f"delay_sigma must be >= 0, got {delay_sigma}")
+        if max_delay < 2:
+            raise ValueError(
+                "lognormal delays are clipped to [1, max_delay]: "
+                "max_delay=1 makes every delay 1 (the degenerate "
+                "no-heterogeneity case) — set max_delay >= 2")
+
+
+@dataclasses.dataclass(frozen=True)
+class PopulationConfig:
+    """Client population ≫ per-round cohort (repro_torch.fed.population).
+
+    ``n`` persistent client states live in a bank; each round a sampler
+    picks a ``cohort`` of C clients, and only those C are computed (gather,
+    the round's local steps, scatter), so per-round compute is O(C), not
+    O(n). The asynchronous fields are kept and validated; the port runs the
+    synchronous rounds only (``max_staleness = 0``) until the async slice.
+    """
+    n: int                          # population size N
+    cohort: int                     # per-round compute cohort C
+    sampler: str = "uniform"        # uniform | roundrobin | trace | trace-file
+    sync_mode: str = "broadcast"    # broadcast | participants
+    # staleness-aware aggregation: weight ∝ (1 + rounds_since_sync)^-decay;
+    # 0 = plain uniform cohort average (only meaningful with participants)
+    staleness_decay: float = 0.0
+    # availability-trace sampler schedule (sampler == "trace")
+    trace_period: int = 8
+    trace_duty: float = 0.5
+    # recorded-trace replay (sampler == "trace-file"): JSONL of per-client
+    # up intervals (docs/async.md)
+    trace_file: Optional[str] = None
+    # ---- asynchronous execution: 0 = synchronous rounds; > 0 drops
+    # arrivals staler than this many rounds (inf = no gating)
+    max_staleness: float = 0.0
+    max_delay: int = 1
+    delay_eta: float = 0.0
+    # heterogeneous per-client delay model: uniform | tiers | lognormal |
+    # trace, with the tiers' population fractions and [lo, hi] delays and
+    # the lognormal's location and scale (in rounds)
+    delay_model: str = "uniform"
+    tier_fracs: Tuple[float, ...] = (0.2, 0.6, 0.2)
+    tier_delays: Tuple[Tuple[int, int], ...] = ((1, 1), (2, 4), (4, 8))
+    delay_mu: float = 0.0
+    delay_sigma: float = 0.5
+    # ---- gossip engine: mixing topology of the decentralized rounds
+    topology: str = "ring"
+    er_p: float = 0.4
+    time_varying: bool = False
+    topology_seed: int = 0
+
+    def __post_init__(self):
+        if not 1 <= self.cohort <= self.n:
+            raise ValueError(f"need 1 <= cohort <= n, got cohort="
+                             f"{self.cohort}, n={self.n}")
+        if self.sync_mode not in ("broadcast", "participants"):
+            raise ValueError(f"sync_mode must be 'broadcast' or "
+                             f"'participants', got {self.sync_mode!r}")
+        if self.sampler not in ("uniform", "roundrobin", "trace",
+                                "trace-file"):
+            raise ValueError(f"sampler must be one of uniform/roundrobin/"
+                             f"trace/trace-file, got {self.sampler!r}")
+        if self.sampler == "trace-file" and not self.trace_file:
+            raise ValueError("sampler='trace-file' needs trace_file=<path>")
+        if self.max_staleness < 0:
+            raise ValueError(f"max_staleness must be >= 0 (0 = synchronous),"
+                             f" got {self.max_staleness}")
+        if self.max_delay < 1:
+            raise ValueError(f"max_delay must be >= 1 round, "
+                             f"got {self.max_delay}")
+        if self.delay_eta < 0:
+            raise ValueError(f"delay_eta must be >= 0, got {self.delay_eta}")
+        validate_delay_model(self.delay_model, self.max_delay,
+                             self.tier_fracs, self.tier_delays,
+                             self.delay_sigma)
+        validate_topology(self.topology, self.er_p, self.time_varying)
+        if self.delay_model == "trace" and not self.trace_file:
+            raise ValueError("delay_model='trace' replays the trace_file's "
+                             "per-client 'delay' field: set "
+                             "trace_file=<path> (format: docs/async.md)")
+        if self.max_staleness == 0 and (self.max_delay > 1
+                                        or self.delay_eta > 0
+                                        or self.delay_model != "uniform"):
+            raise ValueError("max_delay > 1 / delay_eta > 0 / a non-uniform"
+                             " delay_model are async knobs: set "
+                             "max_staleness > 0 (or float('inf')) to "
+                             "enable asynchronous execution")
+
+    @property
+    def asynchronous(self) -> bool:
+        """True when rounds run the async path (overlapping cohorts,
+        delayed arrivals, bounded-staleness gating)."""
+        return self.max_staleness != 0

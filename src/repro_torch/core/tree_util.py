@@ -120,6 +120,10 @@ class TreeBufferSpec:
     size: int                  # valid (unpadded) element count
     padded_size: int
 
+    def with_dtype(self, dtype: torch.dtype) -> "TreeBufferSpec":
+        """The same layout, every leaf unpacked as ``dtype``."""
+        return dataclasses.replace(self, dtypes=(dtype,) * len(self.dtypes))
+
 
 def tree_buffer_spec(tree, *, align: int = 128,
                      stacked: bool = False) -> TreeBufferSpec:

@@ -1,5 +1,6 @@
 """The sync layer: the paper's star server behind the ``Aggregator``
-contract (``combine`` / ``server_step`` / ``reduce`` / ``wire_round``).
+contract (``combine`` / ``server_step`` / ``reduce`` / ``messages`` /
+``wire_round``).
 
 Only the star topology is ported; decentralized gossip comes with the
 federated-runtime slice.
@@ -7,11 +8,12 @@ federated-runtime slice.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
 from repro_torch.core.tree_util import tree_map, tree_mean_axis0
+from repro_torch.fed.compress import Codec, client_messages
 
 
 def weighted_mean(states, w: torch.Tensor):
@@ -26,6 +28,8 @@ class Aggregator:
     """The duck-typed sync contract: engines accept any object with these
     methods."""
 
+    codec: Optional[Codec] = None
+
     def combine(self, states, weights=None):
         raise NotImplementedError
 
@@ -34,6 +38,11 @@ class Aggregator:
 
     def reduce(self, server, states, weights=None):
         return self.server_step(server, self.combine(states, weights))
+
+    def messages(self, ref, cur, ef=None, u=None):
+        """The codec-priced uplink leg (:func:`client_messages`); a lossless
+        codec returns ``(cur, ef)`` untouched."""
+        return client_messages(self.codec, ref, cur, ef, u)
 
     def wire_round(self, msg_b: int, down_b: int, **counts) -> Tuple[int, int]:
         raise NotImplementedError
@@ -46,6 +55,7 @@ class StarAggregator(Aggregator):
     the algorithm's server step with the client count already closed
     over."""
     sync_update: Callable[[Any, Any], Tuple[Any, Any]]
+    codec: Optional[Codec] = None
 
     def combine(self, states, weights=None):
         if weights is None:
@@ -57,6 +67,15 @@ class StarAggregator(Aggregator):
 
     def wire_round(self, msg_b: int, down_b: int, *, tx: int,
                    rx: int) -> Tuple[int, int]:
-        """``tx`` transmitters ship one codec-priced message each; ``rx``
+        """``tx`` unique transmitters ship one codec-priced message each; ``rx``
         receivers each take one full-precision downlink push."""
         return tx * msg_b, rx * down_b
+
+
+def as_aggregator(sync_or_agg, codec: Optional[Codec] = None) -> Aggregator:
+    """Normalize an engine's sync argument: an :class:`Aggregator` passes
+    through (its own codec wins), a bare ``sync_update`` callable wraps
+    into the star default with ``codec``."""
+    if hasattr(sync_or_agg, "combine"):
+        return sync_or_agg
+    return StarAggregator(sync_update=sync_or_agg, codec=codec)

@@ -41,9 +41,11 @@ def main() -> int:
 
     def one_round(r):
         batches_q = stack_round_batches(drv.batches, r * q, q)
-        return drv.round_segment(states, server, batches_q,
+        # the main path's codec is lossless: the states are their own
+        # messages, with no residuals and no noise
+        return drv.round_segment(states, server, states, None, batches_q,
                                  draws.steps[r * q:(r + 1) * q], n_steps=q,
-                                 sync_first=r > 0)
+                                 sync_first=r > 0)[:2]
 
     states, server = one_round(0)            # warm-up: build, allocator
     torch.cuda.synchronize()

@@ -6,23 +6,38 @@ scheduling, metric/wall-clock recording in ``RunResult``) for M simulated
 clients on one device, algorithm-agnostic via the ``Algorithm`` contract
 (:mod:`repro_torch.core.baselines`). Per-step math comes from
 :mod:`repro_torch.core`; the round engine from :mod:`repro_torch.fed.round`;
-the star sync and its wire pricing from :mod:`repro_torch.fed.topology`.
+the star sync, its codec and its wire pricing from
+:mod:`repro_torch.fed.topology` and :mod:`repro_torch.fed.compress`; cohort
+banks and policies from :mod:`repro_torch.fed.population` and
+:mod:`repro_torch.fed.sampling`.
 
-Two engines, with the reference's accounting: ``"eager"`` calls the client
-step once per local step; ``"scan"`` runs each communication round (the
-sync closing the previous round, then q local steps) as one call. Both
-track #samples (q(K+2) at init, K+2 per local step), #communication rounds
-(1 per sync) and the bytes on the wire (one message up per client and one
-state down per client at each sync).
+Two participation regimes, as in the reference:
+
+  * masked (``participation`` < 1, or a ``sampler``): all M clients
+    compute every step and the inactive ones hold their state; the sync
+    averages the active clients of the round it closes;
+  * population (``population=PopulationConfig(n, cohort)``, synchronous):
+    N client states persist in a bank, a sampler picks C ids per round,
+    and only those C are computed (gather, local steps, scatter).
+
+Two engines for the masked path, with the reference's accounting:
+``"eager"`` calls the client step once per local step; ``"scan"`` runs each
+communication round (the sync closing the previous round, then q local
+steps) as one call. All paths track #samples (q(K+2) at init, K+2 per local
+step), #communication rounds (1 per sync) and the bytes on the wire: one
+codec-priced message up per unique transmitter and one full-precision state
+down per receiver at each sync.
 
 Draws are inputs: the Neumann depth of each client at init and at each step
-comes from a :class:`Draws` tensor on the device, made from a
-``torch.Generator`` unless the caller hands one in (the parity tests fill it
-from the reference's keys).
+comes from a :class:`Draws` tensor on the device (indexed by global client
+id in population mode), the int8 codec's rounding noise from a noise source
+(:class:`repro_torch.fed.compress.CodecNoise` unless the caller hands one
+in), and the cohorts from a sampler. The parity tests fill all three from
+the reference.
 
-Not ported yet: ``population=`` (cohort banks, slice 2), ``participation <
-1`` (cohort sampling, slice 2) and lossy codecs (slice 2); each raises
-``NotImplementedError``.
+Not ported yet, and raising ``NotImplementedError``: an asynchronous
+``PopulationConfig`` and ``rounds_per_scan > 1`` (slice 3), and
+``track_consensus=True`` (``core/metrics.py``).
 """
 from __future__ import annotations
 
@@ -33,14 +48,19 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from repro_torch import device as devices
-from repro_torch.configs.base import FedConfig
+from repro_torch.configs.base import FedConfig, PopulationConfig
 from repro_torch.core.adafbio import warm_adaptive
 from repro_torch.core.baselines import Algorithm, make_algorithm
 from repro_torch.core.bilevel import BilevelProblem
 from repro_torch.core.tree_util import (tree_bcast_axis0, tree_index,
                                         tree_map, tree_mean_axis0, tree_stack)
-from repro_torch.fed.compress import codec_from_config, wire_costs
+from repro_torch.fed.compress import (CodecNoise, codec_from_config,
+                                      mask_rows, message_elements,
+                                      wire_costs, zeros_ef)
+from repro_torch.fed.population import (ClientPopulation, broadcast, gather,
+                                        scatter, staleness_weights)
 from repro_torch.fed.round import ENGINES, stack_round_batches
+from repro_torch.fed.sampling import make_sampler
 from repro_torch.fed.topology import StarAggregator
 
 
@@ -66,7 +86,8 @@ class RunResult:
 class Draws:
     """The run's random draws, as device tensors: the Neumann depth of each
     client at init (``init``, [M]) and at each local step (``steps``,
-    [T, M])."""
+    [T, M]); in population mode M is the population size and column i
+    belongs to global client i."""
     init: torch.Tensor
     steps: torch.Tensor
 
@@ -90,38 +111,67 @@ class FedDriver:
     metric_fn: Optional[Callable[..., Any]] = None   # (x̄, ȳ) -> scalar
     grad_norm_fn: Optional[Callable[..., Any]] = None
     algorithm: str = "adafbio"
+    # masked partial participation: fraction of clients active per round
+    # (a uniform sampler); inactive clients hold state and are left out of
+    # the average, but still compute
     participation: float = 1.0
-    population: Optional[Any] = None
+    # population mode: a bank of population.n client states, only
+    # population.cohort of them computed per round (synchronous rounds)
+    population: Optional[PopulationConfig] = None
+    # cohort policy (repro_torch.fed.sampling); None derives
+    # population.sampler, or a uniform sampler for participation < 1, from
+    # the run's seed
+    sampler: Optional[Any] = None
+    track_consensus: bool = False
     # "eager": one client-step call per local step.
     # "scan":  one call per communication round (repro_torch.fed.round).
     engine: str = "eager"
+    rounds_per_scan: int = 1
     device: Any = "cuda"
 
     def __post_init__(self):
         if self.engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}, "
                              f"got {self.engine!r}")
-        if self.population is not None:
-            raise NotImplementedError(
-                "population= is not ported yet: client banks and cohort "
-                "rounds come with the population and codec slice (slice 2)")
-        if self.participation < 1.0:
-            raise NotImplementedError(
-                "participation < 1 is not ported yet: cohort sampling comes "
-                "with the population and codec slice (slice 2)")
+        if self.rounds_per_scan < 1:
+            raise ValueError(f"rounds_per_scan must be >= 1, "
+                             f"got {self.rounds_per_scan}")
+        self._check_ported()
         self.device = devices.resolve(self.device)
         self.alg: Algorithm = make_algorithm(self.algorithm, self.fed,
                                              self.problem)
-        self.codec = codec_from_config(self.alg.fed)
+        self._run_sampler = None         # set per run by _setup_sampler
         # steady-state per-round wall-clock; the first round is reported
         # separately as RunResult.compile_seconds
         self.round_seconds: List[float] = []
 
+    def _check_ported(self) -> None:
+        if self.rounds_per_scan > 1:
+            raise NotImplementedError(
+                "rounds_per_scan > 1 is not ported yet: mega-scan comes "
+                "with the federated-runtime slice (slice 3)")
+        if self.track_consensus:
+            raise NotImplementedError(
+                "track_consensus=True is not ported yet: it needs "
+                "core/metrics.py (ROADMAP, what slice 1 left out)")
+        if self.population is not None and self.population.asynchronous:
+            raise NotImplementedError(
+                "an asynchronous PopulationConfig (max_staleness > 0) is not "
+                "ported yet: async rounds come with the federated-runtime "
+                "slice (slice 3)")
+
+    @property
+    def codec(self):
+        """The update codec the run's FedConfig describes."""
+        return codec_from_config(self.alg.fed)
+
     # -------------------------------------------------- shared pieces
 
-    def batches(self, step: int):
-        """Step ``step``'s batches of every client, stacked [M, ...]."""
-        per_client = [self.batch_fn(m, step) for m in range(self.n_clients)]
+    def batches(self, step: int, ids=None):
+        """Step ``step``'s batches of clients ``ids`` (default: all M),
+        stacked [C, ...]."""
+        ids = range(self.n_clients) if ids is None else ids
+        per_client = [self.batch_fn(int(m), step) for m in ids]
         per_client = tree_map(
             lambda a: torch.as_tensor(a, device=self.device), per_client)
         return tree_stack(per_client)
@@ -129,7 +179,8 @@ class FedDriver:
     def _aggregator(self) -> StarAggregator:
         m = self.n_clients
         return StarAggregator(
-            sync_update=lambda srv, avg: self.alg.sync_update(srv, avg, m))
+            sync_update=lambda srv, avg: self.alg.sync_update(srv, avg, m),
+            codec=self.codec)
 
     def draws(self, total_steps: int, seed: int = 0) -> Draws:
         """Standalone draws for a run, from a generator seeded by ``seed``."""
@@ -151,31 +202,98 @@ class FedDriver:
             server = warm_adaptive(server, tree_mean_axis0(states), fed)
         return states, server
 
-    def _local_body(self, states, server, batches, k):
+    def _setup_sampler(self, seed: int) -> None:
+        """The run's cohort sampler: the one handed in, else one derived
+        from the run's seed (population.sampler, or a uniform sampler of
+        max(participation * M, 1) clients), else None (every client, every
+        round)."""
+        if self.sampler is not None:
+            self._run_sampler = self.sampler
+            return
+        sseed = devices.mix_seed(seed, 23)
+        m = self.n_clients
+        if self.population is not None:
+            p = self.population
+            self._run_sampler = make_sampler(
+                p.sampler, p.n, p.cohort, sseed, period=p.trace_period,
+                duty=p.trace_duty, trace_file=p.trace_file)
+        elif self.participation < 1.0:
+            c = max(int(self.participation * m), 1)
+            self._run_sampler = make_sampler("uniform", m, c, sseed)
+        else:
+            self._run_sampler = None
+
+    def _active_mask(self, round_id: int) -> Optional[torch.Tensor]:
+        """Round ``round_id``'s participation mask on the host, or None when
+        every client takes part."""
+        if self._run_sampler is None:
+            return None
+        return self._run_sampler.mask(round_id)
+
+    def _on_device(self, t: Optional[torch.Tensor]):
+        return None if t is None else devices.to_device(t, self.device)
+
+    def _transmitters(self, mask: Optional[torch.Tensor]) -> int:
+        return self.n_clients if mask is None else int(mask.sum())
+
+    def _codec_noise(self, noise, round_id: int, ids: torch.Tensor,
+                     n: int) -> Optional[torch.Tensor]:
+        """The int8 codec's [C, n] rounding noise of a sync, or None for the
+        codecs that draw none."""
+        return noise(round_id, ids, n) if self.codec.name == "int8" else None
+
+    def _local_body(self, states, server, batches, k, active=None):
         t = server["t"]
         new = self.alg.local_step(states, server["adaptive"], batches, k, t,
                                   self.n_clients)
+        if active is not None:
+            # partial participation: inactive clients hold their state
+            new = mask_rows(active, new, states)
         srv = dict(server)
         srv["t"] = t + 1
         return new, srv
 
-    def _sync_body(self, states, server):
+    def _sync_body(self, states, server, active, ref, ef, u):
+        """The sync of the eager and scan engines. Messages are priced
+        against ``ref`` (the last broadcast, shared by every client; a
+        lossless codec sends the states as they are), EF residuals hold for
+        inactive clients, and the server averages the active clients'
+        reconstructions with weights ``active / max(Σactive, 1)``. Returns
+        ``(states, server, ref, ef)`` with the fresh broadcast as the next
+        ``ref``."""
         m = self.n_clients
-        w = torch.ones((m,), dtype=torch.float32, device=self.device)
-        new_client, new_server = self._aggregator().reduce(
-            server, states, weights=w / w.sum())
-        return tree_bcast_axis0(new_client, m), new_server
+        agg = self._aggregator()
+        recon, ef_new = agg.messages(ref, states, ef, u)
+        if ef is not None and active is not None:
+            ef_new = mask_rows(active, ef_new, ef)
+        w = (torch.ones((m,), dtype=torch.float32, device=self.device)
+             if active is None else active.float())
+        new_client, new_server = agg.reduce(
+            server, recon, weights=w / w.sum().clamp_min(1.0))
+        new_states = tree_bcast_axis0(new_client, m)
+        return new_states, new_server, new_states, ef_new
 
-    def round_segment(self, states, server, batches_q, draws_q, *,
-                      n_steps: int, sync_first: bool):
-        """One round of the scan engine: the sync closing the previous
-        round (unless this is round 0), then ``n_steps`` local steps."""
-        if sync_first:
-            states, server = self._sync_body(states, server)
+    def _local_steps(self, states, server, batches_q, draws_q, n_steps,
+                     active):
         for j in range(n_steps):
             states, server = self._local_body(
-                states, server, tree_index(batches_q, j), draws_q[j])
+                states, server, tree_index(batches_q, j), draws_q[j], active)
         return states, server
+
+    def round_segment(self, states, server, ref, ef, batches_q, draws_q,
+                      u=None, *, n_steps: int, sync_first: bool, active=None,
+                      active_prev=None):
+        """One round of the scan engine: the sync closing the previous
+        round (unless this is round 0; ``u`` its int8 noise), then
+        ``n_steps`` local steps. ``active``/``active_prev`` are this and the
+        previous round's device masks (None: every client). Returns
+        ``(states, server, ref, ef)``."""
+        if sync_first:
+            states, server, ref, ef = self._sync_body(
+                states, server, active_prev, ref, ef, u)
+        states, server = self._local_steps(states, server, batches_q,
+                                           draws_q, n_steps, active)
+        return states, server, ref, ef
 
     def _record(self, res: RunResult, states, step, samples, comms,
                 bytes_up: int = 0, bytes_down: int = 0):
@@ -193,7 +311,7 @@ class FedDriver:
     def _log_round(self, res: RunResult, dt: float):
         """Log one round's wall-clock: the sync and the local steps, from
         after its batches are built until the device has finished them (no
-        batch building, no evaluation), the same span in both engines. The
+        batch building, no evaluation), the same span in every engine. The
         first completed round carries the warm-up; keep it out of the
         steady-state per-round log."""
         if res.compile_seconds == 0.0:
@@ -204,7 +322,12 @@ class FedDriver:
     # -------------------------------------------------- run loops
 
     def run(self, total_steps: int, seed: int = 0, eval_every: int = 10,
-            draws: Optional[Draws] = None) -> RunResult:
+            draws: Optional[Draws] = None,
+            noise: Optional[Callable] = None) -> RunResult:
+        """Run ``total_steps`` local steps. ``draws`` defaults to
+        :meth:`draws`, ``noise`` (``(round_id, ids, n) -> [C, n]``) to a
+        :class:`CodecNoise` of ``seed`` on the run's device."""
+        self._check_ported()
         draws = draws if draws is not None else self.draws(total_steps, seed)
         if tuple(draws.init.shape) != (self.n_clients,) or (
                 draws.steps.shape[0] < total_steps
@@ -213,36 +336,55 @@ class FedDriver:
                 f"draws must cover {self.n_clients} clients and "
                 f"{total_steps} steps, got init {tuple(draws.init.shape)}, "
                 f"steps {tuple(draws.steps.shape)}")
+        noise = noise if noise is not None else CodecNoise(seed, self.device)
+        self._setup_sampler(seed)
+        if self.population is not None:
+            return self._run_population(total_steps, seed, eval_every, draws,
+                                        noise)
         if self.engine == "scan":
-            return self._run_scan(total_steps, seed, eval_every, draws)
+            return self._run_scan(total_steps, seed, eval_every, draws,
+                                  noise)
         fed = self.alg.fed
+        m = self.n_clients
         states, server = self.init_run(seed, draws)
         samples = fed.q * (fed.neumann_k + 2)
         comms = 0
         agg = self._aggregator()
         msg_b, down_b = wire_costs(self.codec, states)
         bytes_up = bytes_down = 0
+        ref, ef = states, zeros_ef(self.codec, states)   # server-known init
+        ids, n_msg = (torch.arange(m, device=self.device),
+                      message_elements(states))
 
         res = RunResult(self.alg.name, [], [], [], [], [], 0.0)
         t0 = time.time()
         for t in range(total_steps):
+            rnd = t // fed.q
             if t % fed.q == 0:
-                # the round's batches are built before its clock starts, and
-                # evaluations inside the round are taken off it (_log_round)
+                # the round's batches and masks are built before its clock
+                # starts, and evaluations inside the round are taken off it
+                # (_log_round)
                 round_batches = [self.batches(s) for s in
                                  range(t, min(t + fed.q, total_steps))]
+                mask = self._active_mask(rnd)
+                active = self._on_device(mask)
+                if t > 0:
+                    mask_prev = self._active_mask(rnd - 1)
+                    active_prev = self._on_device(mask_prev)
                 eval_s = 0.0
                 r0 = time.time()
             if t > 0 and t % fed.q == 0:
-                states, server = self._sync_body(states, server)
+                states, server, ref, ef = self._sync_body(
+                    states, server, active_prev, ref, ef,
+                    self._codec_noise(noise, rnd - 1, ids, n_msg))
                 comms += 1
-                up, down = agg.wire_round(msg_b, down_b, tx=self.n_clients,
-                                          rx=self.n_clients)
+                up, down = agg.wire_round(
+                    msg_b, down_b, tx=self._transmitters(mask_prev), rx=m)
                 bytes_up += up
                 bytes_down += down
             states, server = self._local_body(states, server,
                                               round_batches[t % fed.q],
-                                              draws.steps[t])
+                                              draws.steps[t], active)
             samples += fed.neumann_k + 2
             if (t + 1) % fed.q == 0 or t == total_steps - 1:
                 devices.fence(self.device)
@@ -258,21 +400,26 @@ class FedDriver:
         return res
 
     def _run_scan(self, total_steps: int, seed: int, eval_every: int,
-                  draws: Draws) -> RunResult:
+                  draws: Draws, noise) -> RunResult:
         """Round engine: each communication round is one call — the sync
         that closes the PREVIOUS round, then this round's local steps. Same
         per-step math, draws and step count as the eager loop (a trailing
         partial round runs the remainder), and every recorded state is
         post-local/pre-sync like the eager loop's; only the eval granularity
-        is per round instead of per step."""
+        is per round instead of per step. The codec sync closing round r-1
+        draws round r-1's noise, as the eager engine's does."""
         fed = self.alg.fed
         q = fed.q
+        m = self.n_clients
         states, server = self.init_run(seed, draws)
         samples = fed.q * (fed.neumann_k + 2)
         comms = 0
         agg = self._aggregator()
         msg_b, down_b = wire_costs(self.codec, states)
         bytes_up = bytes_down = 0
+        ref, ef = states, zeros_ef(self.codec, states)
+        ids, n_msg = (torch.arange(m, device=self.device),
+                      message_elements(states))
 
         full, rem = divmod(total_steps, q)
         lengths = [q] * full + ([rem] if rem else [])
@@ -282,19 +429,26 @@ class FedDriver:
         t = 0
         for r, n_steps in enumerate(lengths):
             batches_q = stack_round_batches(self.batches, t, n_steps)
+            mask = self._active_mask(r)
+            # round 0 has no preceding sync: no mask(-1) is drawn
+            mask_prev = self._active_mask(r - 1) if r > 0 else mask
+            masks = dict(active=self._on_device(mask),
+                         active_prev=self._on_device(mask_prev))
+            kw = dict(n_steps=n_steps, sync_first=r > 0, **masks)
             r0 = time.time()
-            states, server = self.round_segment(
-                states, server, batches_q, draws.steps[t:t + n_steps],
-                n_steps=n_steps, sync_first=r > 0)
+            u = (self._codec_noise(noise, r - 1, ids, n_msg) if r > 0
+                 else None)
+            states, server, ref, ef = self.round_segment(
+                states, server, ref, ef, batches_q,
+                draws.steps[t:t + n_steps], u, **kw)
             devices.fence(self.device)
-            dt = time.time() - r0
-            self._log_round(res, dt)
+            self._log_round(res, time.time() - r0)
             t += n_steps
             samples += n_steps * (fed.neumann_k + 2)
             if r > 0:
                 comms += 1
-                up, down = agg.wire_round(msg_b, down_b, tx=self.n_clients,
-                                          rx=self.n_clients)
+                up, down = agg.wire_round(
+                    msg_b, down_b, tx=self._transmitters(mask_prev), rx=m)
                 bytes_up += up
                 bytes_down += down
             if r % eval_rounds == 0 or r == len(lengths) - 1:
@@ -302,4 +456,123 @@ class FedDriver:
                              bytes_down)
         res.seconds = time.time() - t0
         res.final_avg_state = tree_mean_axis0(states)
+        return res
+
+    # -------------------------------------------------- population mode
+
+    def _init_population(self, seed: int, draws: Draws):
+        """Bank of N client states: the masked path's init (shared (x0, y0),
+        per-client Neumann depths and step-0 batches) over all N, so N == M
+        runs start identically."""
+        states, server = self.init_run(seed, draws)
+        n = self.population.n
+        return ClientPopulation(states=states, n=n, last_sync=torch.zeros(
+            n, dtype=torch.int32, device=self.device)), server
+
+    def population_segment(self, bank, last_sync, ef, server, prev_ids, ids,
+                           batches_q, draws_q, round_id: int, u=None, *,
+                           n_steps: int, sync_first: bool):
+        """One population round: the sync that closes round ``round_id - 1``
+        over the previous cohort ``prev_ids`` (unless this is round 0), then
+        ``n_steps`` local steps of cohort ``ids`` (``draws_q`` [n_steps, C]),
+        its messages through the codec (``u`` the int8 noise), and the
+        write-back. Returns ``(bank, last_sync, ef, server)``."""
+        pcfg = self.population
+        agg = self._aggregator()
+        if sync_first:
+            # a client stamped at the previous sync (last_sync == r-1) is
+            # fully fresh
+            w = staleness_weights(last_sync, prev_ids, round_id - 1,
+                                  pcfg.staleness_decay)
+            new_client, server = agg.reduce(server, gather(bank, prev_ids),
+                                            weights=w)
+            if pcfg.sync_mode == "broadcast":
+                bank = broadcast(bank, new_client)
+                last_sync = torch.full_like(last_sync, round_id)
+            else:
+                bank = scatter(bank, prev_ids, tree_bcast_axis0(
+                    new_client, prev_ids.shape[0]))
+                last_sync = last_sync.index_fill(0, prev_ids, round_id)
+        ref = cur = gather(bank, ids)        # server-known dispatch states
+        cur, server = self._local_steps(cur, server, batches_q, draws_q,
+                                        n_steps, None)
+        # the cohort ships its update when the round ends; its bank rows
+        # become the server-side reconstructions the next sync averages (a
+        # lossless codec sends the states as they are)
+        ef_c = gather(ef, ids) if ef is not None else None
+        cur, ef_c = agg.messages(ref, cur, ef_c, u)
+        if ef is not None:
+            ef = scatter(ef, ids, ef_c)
+        return scatter(bank, ids, cur), last_sync, ef, server
+
+    def _run_population(self, total_steps: int, seed: int, eval_every: int,
+                        draws: Draws, noise) -> RunResult:
+        """Cohort-sampled synchronous rounds over a persistent N-client bank,
+        shaped as the scan engine's: the sync that closes the PREVIOUS round,
+        then this round's local steps, touching only the C sampled clients.
+        With ``sync_mode='broadcast'`` and the same cohorts this is the
+        masked-participation trajectory."""
+        pcfg = self.population
+        if pcfg.n != self.n_clients:
+            raise ValueError(
+                f"population.n ({pcfg.n}) must equal n_clients "
+                f"({self.n_clients}): batch_fn and init indices run over the "
+                f"population")
+        n = pcfg.n
+        fed = self.alg.fed
+        q = fed.q
+        agg = self._aggregator()
+        pop, server = self._init_population(seed, draws)
+        bank, last_sync = pop.states, pop.last_sync
+        samples = fed.q * (fed.neumann_k + 2)
+        comms = 0
+        msg_b, down_b = wire_costs(self.codec, bank)
+        bytes_up = bytes_down = 0
+        ef = zeros_ef(self.codec, bank)
+        n_msg = message_elements(bank)
+
+        full, rem = divmod(total_steps, q)
+        lengths = [q] * full + ([rem] if rem else [])
+        eval_rounds = max(eval_every // q, 1)
+        res = RunResult(self.alg.name, [], [], [], [], [], 0.0)
+        t0 = time.time()
+        t = 0
+        prev_ids = prev_host = None
+        for r, n_steps in enumerate(lengths):
+            ids_host = self._run_sampler.cohort(r)
+            ids = self._on_device(ids_host)
+            # the sync opening round r aggregates (and bills) the PREVIOUS
+            # round's cohort: the clients whose updates are on the wire
+            if prev_ids is None:
+                prev_ids, prev_host = ids, ids_host
+            batches_q = tree_stack([self.batches(t + j, ids_host)
+                                    for j in range(n_steps)])
+            draws_q = draws.steps[t:t + n_steps].index_select(1, ids)
+            r0 = time.time()
+            bank, last_sync, ef, server = self.population_segment(
+                bank, last_sync, ef, server, prev_ids, ids, batches_q,
+                draws_q, r, self._codec_noise(noise, r, ids, n_msg),
+                n_steps=n_steps, sync_first=r > 0)
+            devices.fence(self.device)
+            self._log_round(res, time.time() - r0)
+            t += n_steps
+            samples += n_steps * (fed.neumann_k + 2)
+            if r > 0:
+                comms += 1
+                # uplink bills UNIQUE transmitters: a duplicate cohort id
+                # holds two aggregation slots, but one client shipped one
+                # message; participants-mode downlink reaches each once
+                tx = int(torch.unique(prev_host).numel())
+                up, down = agg.wire_round(
+                    msg_b, down_b, tx=tx,
+                    rx=(n if pcfg.sync_mode == "broadcast" else tx))
+                bytes_up += up
+                bytes_down += down
+            prev_ids, prev_host = ids, ids_host
+            if r % eval_rounds == 0 or r == len(lengths) - 1:
+                self._record(res, bank, t - 1, samples, comms, bytes_up,
+                             bytes_down)
+        res.seconds = time.time() - t0
+        self.final_bank = bank
+        res.final_avg_state = tree_mean_axis0(bank)
         return res

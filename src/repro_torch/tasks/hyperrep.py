@@ -28,20 +28,11 @@ _G, _G0, _F, _GI = 0, 1, 2, 3
 _VAL_STEP, _VAL_N = 999_999, 256
 
 
-def _seed(*parts: int) -> int:
-    s = 0x9E3779B97F4A7C15
-    for p in parts:
-        s = (s * 1_000_003 + int(p) + 1) % (1 << 62)
-    return s
-
-
 def build_hyperrep(cfg: HyperRepConfig, device="cuda", seed: int = 0):
     dev = devices.resolve(device)
 
     def generator(*parts) -> torch.Generator:
-        g = torch.Generator(device=dev)
-        g.manual_seed(_seed(seed, *parts))
-        return g
+        return devices.generator(dev, seed, *parts)
 
     protos = torch.randn(cfg.n_classes, cfg.in_dim, generator=generator(42),
                          device=dev)

@@ -1,11 +1,14 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version, and the fused path of a local step reaching them. Needs a CUDA
-device and ``nvcc``; without a card every test here skips. Run on the card
-with ``python -m pytest -q tests/test_torch_cuda.py`` (no JAX needed)."""
+version, and the fused path of a local step and the int8 codec reaching
+them. Needs a CUDA device and ``nvcc``; without a card every test here
+skips. Run on the card with ``python -m pytest -q tests/test_torch_cuda.py``
+(no JAX needed)."""
 import pytest
 import torch
 
-from repro_torch.kernels import ref, storm_update as kern
+from repro_torch.core.tree_util import tree_leaves, tree_map
+from repro_torch.kernels import quantize as qkern, ref
+from repro_torch.kernels import storm_update as kern
 
 RTOL = 1e-6
 
@@ -80,3 +83,83 @@ def test_fused_auto_reaches_the_kernels(cuda):
                        torch.tensor([0, 1, 2], device=cuda),
                        torch.zeros((), dtype=torch.int32, device=cuda), m)
     assert kern.launches == {"storm_update": 2, "adafbio_update": 1}
+
+
+def _bits(t):
+    """The tensor's raw bits, so that equality is bit for bit."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("m,sizes,offset,bits", [
+    (8, (4096, 1000, 20, 3), 0, 8), (1, (1001,), 0, 4), (3, (1, 2), 0, 8),
+    (2, (5, 770), 1, 2), (2, (500, 504), 1, 8), (4, (64, 0, 64), 0, 8)])
+def test_quantize_kernels_equal_plain_versions(cuda, m, sizes, offset, bits):
+    """Levels and dequantized values equal the plain versions bit for bit,
+    at ragged lengths, misaligned views (one with n % 4 == 0, where only the
+    alignment test keeps the vector path off) and an empty segment."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(sum(sizes) + bits)
+    n = sum(sizes)
+    flat = torch.randn(m * n + offset, generator=g, device=cuda) * 3.0
+    x = flat[offset:].view(m, n)
+    u = torch.rand((m, n), generator=g, device=cuda)
+    offsets = [0]
+    for s in sizes:
+        offsets.append(offsets[-1] + s)
+    qmax = (1 << (bits - 1)) - 1
+    scale = torch.rand((m, len(sizes)), generator=g, device=cuda) + 0.01
+    table = torch.tensor(offsets, device=cuda)
+    before = dict(qkern.launches)
+    q = qkern.quantize_stoch(x, u, scale, table, qmax)
+    q_in = q
+    if offset:
+        # the levels as a view misaligned by the same offset
+        qbuf = torch.empty(m * n + offset, dtype=torch.int8, device=cuda)
+        qbuf[offset:].copy_(q.view(-1))
+        q_in = qbuf[offset:].view(m, n)
+    back = qkern.dequantize(q_in, scale, table)
+    torch.cuda.synchronize()
+    assert torch.equal(q, ref.quantize_stoch_ref(x, u, scale, table, qmax))
+    assert torch.equal(_bits(back), _bits(ref.dequantize_ref(q, scale,
+                                                             table)))
+    assert qkern.launches["quantize_stoch"] == before["quantize_stoch"] + 1
+    assert qkern.launches["dequantize"] == before["dequantize"] + 1
+
+
+def test_quantize_wrappers_reject_what_the_kernel_does_not_take(cuda):
+    x = torch.ones(2, 8, device=cuda)
+    table = torch.tensor([0, 3, 8], device=cuda)
+    scale = torch.ones(2, 2, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        qkern.quantize_stoch(x.double(), x, scale, table, 127)
+    with pytest.raises(TypeError, match="int64"):
+        qkern.quantize_stoch(x, x, scale, table.int(), 127)
+    with pytest.raises(ValueError, match="shape"):
+        qkern.quantize_stoch(x, x, scale[:, :1], table, 127)
+    with pytest.raises(ValueError, match="qmax"):
+        qkern.quantize_stoch(x, x, scale, table, 300)
+    with pytest.raises(TypeError, match="int8"):
+        qkern.dequantize(x, scale, table)
+
+
+def test_int8_codec_makes_one_launch_each_per_message(cuda):
+    from repro_torch.fed import compress
+    m = 5
+    ref_t = {"a": torch.randn(m, 7, 3, device=cuda),
+             "b": {"c": torch.randn(m, 11, device=cuda),
+                   "d": torch.randn(m, 1, device=cuda)}}
+    cur = {"a": ref_t["a"] + 0.1, "b": {"c": ref_t["b"]["c"] * 1.5,
+                                        "d": ref_t["b"]["d"] - 2.0}}
+    codec = compress.make_codec("int8")
+    ef = compress.zeros_ef(codec, ref_t)
+    u = torch.rand((m, compress.message_elements(ref_t)), device=cuda)
+    qkern.reset_launches()
+    recon, ef2 = compress.client_messages(codec, ref_t, cur, ef, u)
+    assert qkern.launches == {"quantize_stoch": 1, "dequantize": 1}
+    def cpu(t):
+        return tree_map(lambda a: a.cpu(), t)
+    want = compress.client_messages(codec, cpu(ref_t), cpu(cur), cpu(ef),
+                                    u.cpu())
+    for got_t, want_t in zip((recon, ef2), want):
+        for a, b in zip(tree_leaves(got_t), tree_leaves(want_t)):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=1e-6)

@@ -14,8 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_harness import (assert_trees_close, reference_draws,
-                                to_torch)
+from test_torch_harness import (assert_trees_close, quadratic_pair,
+                                reference_draws, to_torch)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -32,7 +32,7 @@ from repro_torch.core.bilevel import (quadratic_bilevel_problem,  # noqa: E402
                                       quadratic_true_grad)
 from repro_torch.core.tree_util import tree_norm  # noqa: E402
 from repro_torch.tasks import Draws, FedDriver, build_hyperrep  # noqa: E402
-from repro_torch.configs import HyperRepConfig  # noqa: E402
+from repro_torch.configs import HyperRepConfig, PopulationConfig  # noqa: E402
 
 STEPS, Q = 4, 2
 KEY = jax.random.PRNGKey(0)
@@ -48,20 +48,10 @@ def _compare(res, ref_res, rtol):
                        rtol=rtol, atol=rtol, what="final_avg_state")
 
 
-def _quadratic_pair(seed=0, d=8, p=6):
-    rng = np.random.default_rng(seed)
-    A = rng.standard_normal((p, p)).astype(np.float32)
-    H = (A @ A.T / p + 0.5 * np.eye(p)).astype(np.float32)
-    Bm = (rng.standard_normal((p, d)) * 0.3).astype(np.float32)
-    c = rng.standard_normal(p).astype(np.float32)
-    Q_ = (np.eye(d) * 0.2).astype(np.float32)
-    return (H, Bm, c, Q_), float(1.0 / np.linalg.eigvalsh(H)[-1])
-
-
 @pytest.mark.parametrize("engine", ENGINES)
 @pytest.mark.parametrize("algorithm", ["adafbio", "fednest"])
 def test_quadratic_driver_matches_reference(engine, algorithm):
-    consts, theta = _quadratic_pair()
+    consts, theta = quadratic_pair()
     K, m, d, p = 8, 4, 8, 6
     ref_fed = RefFedConfig(q=Q, neumann_k=K, lr_x=0.3, lr_y=0.3, theta=theta)
     jc = tuple(map(jnp.asarray, consts))
@@ -126,7 +116,7 @@ def test_hyperrep_driver_matches_reference(engine):
 
 def _tiny_driver(**kw):
     zero = torch.zeros(())
-    consts, theta = _quadratic_pair()
+    consts, theta = quadratic_pair()
     return FedDriver(
         quadratic_bilevel_problem(*map(torch.from_numpy, consts)),
         kw.pop("fed", FedConfig(q=2, neumann_k=2, theta=theta)), n_clients=2,
@@ -137,9 +127,10 @@ def _tiny_driver(**kw):
 
 
 @pytest.mark.parametrize("kw, later", [
-    (dict(population=object()), "population"),
-    (dict(participation=0.5), "participation"),
-    (dict(fed=FedConfig(codec="int8")), "codec"),
+    (dict(population=PopulationConfig(n=2, cohort=1, max_staleness=2.0)),
+     "asynchronous"),
+    (dict(rounds_per_scan=2), "rounds_per_scan"),
+    (dict(track_consensus=True), "track_consensus"),
 ])
 def test_unported_options_raise(kw, later):
     with pytest.raises(NotImplementedError, match=later):
@@ -176,7 +167,7 @@ def test_round_clock_leaves_out_batches_and_evaluation(engine):
     problem takes; a clock that held either would exceed the sleep."""
     nap = 0.25
     zero = torch.zeros(())
-    consts, theta = _quadratic_pair()
+    consts, theta = quadratic_pair()
 
     def slow_batch(c, s):
         time.sleep(nap)

@@ -10,8 +10,8 @@ repro``. Because pytest collects test files in order, the reference's test
 files collected after these (``test_train_resume.py``) import too.
 
 Inputs are made with numpy from a seed and handed to both packages; the
-reference's random draws (Neumann depths) are exported through numpy as the
-port's draw tensors.
+reference's random draws (Neumann depths, the int8 codec's rounding noise,
+cohorts) are exported through numpy as the port's draw inputs.
 """
 from jax._src.interpreters import batching as _batching
 
@@ -24,6 +24,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.fed.sampling import CohortSampler  # noqa: E402
 from repro_torch.interop import from_reference, to_numpy  # noqa: E402
 
 CPU = torch.device("cpu")
@@ -89,6 +90,55 @@ def reference_draws(key, n_clients: int, total_steps: int, q: int, K: int,
             steps[s, i] = neumann_k(kk, K)
     return Draws(init=torch.tensor(init, dtype=torch.int64),
                  steps=torch.from_numpy(steps))
+
+
+def quadratic_pair(seed=0, d=8, p=6):
+    """Constants (H, B, c, Q) of the quadratic bilevel problem as numpy f32,
+    and a Neumann step theta = 1 / L_g."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((p, p)).astype(np.float32)
+    H = (A @ A.T / p + 0.5 * np.eye(p)).astype(np.float32)
+    Bm = (rng.standard_normal((p, d)) * 0.3).astype(np.float32)
+    c = rng.standard_normal(p).astype(np.float32)
+    Q_ = (np.eye(d) * 0.2).astype(np.float32)
+    return (H, Bm, c, Q_), float(1.0 / np.linalg.eigvalsh(H)[-1])
+
+
+def reference_codec_noise(key, round_id: int, gid: int, sizes):
+    """The int8 codec's noise of client ``gid`` at ``round_id`` in the
+    reference, flattened in leaf order: ``fold_in(fold_in(fold_in(key,
+    0xC0DEC), round_id), gid)`` (fed/compress.py:239, :248), split into one
+    key per leaf (:121), one ``uniform`` per leaf."""
+    k = jax.random.fold_in(jax.random.fold_in(
+        jax.random.fold_in(key, 0xC0DEC), round_id), gid)
+    keys = jax.random.split(k, max(len(sizes), 1))
+    return np.concatenate([np.asarray(jax.random.uniform(kk, (s,)))
+                           for kk, s in zip(keys, sizes)])
+
+
+class ReferenceNoise:
+    """The port's noise source (``(round_id, ids, n) -> [C, n]``) filled
+    from the reference's key chain, for leaves of ``sizes`` elements."""
+
+    def __init__(self, key, sizes):
+        self.key, self.sizes = key, list(sizes)
+
+    def __call__(self, round_id, ids, n):
+        assert n == sum(self.sizes), (n, self.sizes)
+        rows = [reference_codec_noise(self.key, round_id, g, self.sizes)
+                for g in ids.cpu().tolist()]
+        return torch.from_numpy(np.stack(rows)).to(ids.device)
+
+
+class ReplaySampler(CohortSampler):
+    """A port sampler that replays a reference sampler's cohorts."""
+
+    def __init__(self, ref_sampler):
+        self.ref, self.n, self.c = ref_sampler, ref_sampler.n, ref_sampler.c
+
+    def cohort(self, round_id):
+        return torch.from_numpy(np.asarray(self.ref.cohort(round_id),
+                                           np.int64))
 
 
 # ------------------------------------------------------------ tests
