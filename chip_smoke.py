@@ -38,12 +38,37 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
    theta = 1 (the card held no farther from the witness than the CPU);
 8. the quadratic quickstart problem, eager and scan, with its grad-norm
    trajectory;
-9. one JSON line with every kernel's numbers, then the result line
+9. flash phase: the prefill's attention kernel against its plain version
+   (f32 math) in the prefill's [B, S, H, D] layout: the full-width prefill
+   (qwen2.5-14b: 40 heads over 8, head_dim 128, S 1536, bf16, causal), MHA
+   at a ragged S 1000, MQA at granite-20b's 48 heads over 1, a sliding
+   window (S 4096, window 1024) and an f32 case; times kernel, plain version
+   and ``F.scaled_dot_product_attention`` (the library yardstick, not on
+   the path) beside the bound;
+10. quant-decode phase: the int8 decode kernel against its plain version
+   on one layer's slice of the serve pool (B 8, H 40 over 8, W 2048,
+   Dh 128), at per-row positions from 1 to 2048, MQA, a W that is not a
+   multiple of the kernel's tile, a scalar position and every row reaching
+   into the last run of tiles the kernel cuts it into; both attention
+   phases hold each element of the output at tol * (1 + |plain|);
+11. serve phase: qwen2.5-14b at full width (48 layers, bf16, 14.8 B params
+   from a seeded generator) through ``Engine(slots=8, max_len=2048,
+   kv_quant=True)`` replaying 16 requests of 256, 1024 and 1536 prompt
+   tokens: 48 flash launches per admission and 48 int8-decode launches per
+   tick, req/s, tok/s, latency, steady prefill and tick times;
+12. serve check: with the same weights, two requests' prefill logits and 8
+   teacher-forced decode ticks, every path starting each tick from one
+   int8 pool, through the kernels against the plain versions: in bf16 beside
+   the reference's own path as a witness of bf16 noise, then with the
+   weights widened to f32 against a limit that a one-key fault (the
+   control) exceeds; and the greedy-token agreement;
+13. one JSON line with every kernel's numbers, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Every phase either passes or raises, and the script exits nonzero.
 """
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -56,17 +81,43 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12              # H100 SXM f32 peak outside the tensor cores
 KERNEL_RTOL = 1e-6             # kernel vs plain version, f32
+# attention kernels vs their plain versions, element by element:
+# |got - want| <= tol * (1 + |want|), the reference's kernel rule
+# (tests/test_kernels.py:45, atol = rtol = tol), with its tolerances: 1e-6
+# where the inputs are f32 (sums in another order) and 2e-2 where they are
+# bf16 (the output's rounding)
+ATTN_TOL = {"float32": 1e-6, "bfloat16": 2e-2}
+SERVE_WITNESS = 2.0            # bf16 serve check, see serve_check
+# f32 serve check, normwise (serve_check): on the H100 the kernel path
+# parted from the plain one by at most 2.7e-5 (a prefill's logits; 1.3e-5
+# over the ticks) and the control, one key of each row zeroed in every
+# layer, by at least 8.6e-2; the limit sits about 55 times from each
+SERVE_F32_RTOL = 1.5e-3
 MAIN_SHAPE = (8, 1_066_240)    # the main path's packed [M, n] x buffer
 MSG_ELEMENTS = 2_173_440       # one client's message at MNIST width
 SOURCES = {"storm_update": "src/repro_torch/kernels/csrc/storm_update.cu",
            "adafbio_update": "src/repro_torch/kernels/csrc/storm_update.cu",
            "quantize_stoch": "src/repro_torch/kernels/csrc/quantize.cu",
-           "dequantize": "src/repro_torch/kernels/csrc/quantize.cu"}
+           "dequantize": "src/repro_torch/kernels/csrc/quantize.cu",
+           "flash_attention":
+               "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "quant_decode_attention":
+               "src/repro_torch/kernels/csrc/quant_decode.cu"}
 REPLACES = {"storm_update": "src/repro/kernels/storm_update.py:45",
             "adafbio_update": "src/repro/kernels/storm_update.py:80",
             "quantize_stoch": "src/repro/kernels/quantize.py:37",
-            "dequantize": "src/repro/kernels/quantize.py:69"}
+            "dequantize": "src/repro/kernels/quantize.py:69",
+            "flash_attention": "src/repro/kernels/flash_attention.py:63",
+            "quant_decode_attention": "src/repro/kernels/quant_decode.py:64"}
+SERVE_ARCH = "qwen2.5-14b"
+# the serve phase's workload: 16 requests, all at once, prompts of 256,
+# 1024 and 1536 tokens, budgets ~ 1 + Geom(1/16) capped at 32
+SERVE_LOAD = dict(n_requests=16, rate=0.0, prompt_lens=(256, 1024, 1536),
+                  mean_new_tokens=16.0, max_new_cap=32, seed=0)
+SERVE_SLOTS, SERVE_MAX_LEN = 8, 2048
 # One round on the card against the same round on the CPU, stage by stage
 # (round_check): each stage starts both devices from the card's state before
 # it, with the same batches and draws, so they differ only in how cuBLAS and
@@ -644,24 +695,359 @@ def quadratic(torch):
             raise AssertionError(f"quadratic {engine} did not descend")
 
 
-def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 1
-    print(gpu_line(), flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def attention_pairs(sq, sk, causal, window):
+    """The (query, key) pairs the mask lets through, positions from 0."""
+    total = 0
+    for qp in range(sq):
+        hi = min(qp + 1, sk) if causal else sk
+        lo = max(0, qp - window + 1) if window else 0
+        total += max(0, hi - lo)
+    return total
 
-    from repro_torch.kernels import _build, ops, ref
-    from repro_torch.kernels import quantize as qkern
-    from repro_torch.kernels import storm_update as kern
-    kerns = (kern, qkern)
 
+def attn_error(torch, got, want, dtype):
+    """(largest |got - want|, the worst element's error over its limit
+    tol * (1 + |want|)), tol from ATTN_TOL by ``dtype``; fails above 1."""
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[str(dtype).removeprefix("torch.")]
+    diff = (got.float() - want.float()).abs()
+    worst = (diff / (tol * (1 + want.float().abs()))).max().item()
+    return diff.max().item(), worst
+
+
+def flash_phase(torch, fkern, ref):
+    """flash_attention against its plain version at every listed shape, in
+    the prefill's [B, S, H, D] layout viewed as [B, H, S, D]; returns the
+    numbers of the full-width prefill shape."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("main", 1, 40, 8, 1536, 128, bf16, None),
+             ("mha-ragged", 1, 20, 20, 1000, 128, bf16, None),
+             ("mqa", 1, 48, 1, 1536, 128, bf16, None),
+             ("window", 1, 40, 8, 4096, 128, bf16, 1024),
+             ("f32", 1, 8, 2, 512, 64, f32, None)]
+    results = {}
+    for label, b, h, kv, s, d, dtype, window in cases:
+        def make(heads):
+            return torch.randn(b, s, heads, d, generator=gen, device=dev,
+                               dtype=dtype).transpose(1, 2)
+        q, k, v = make(h), make(kv), make(kv)
+        fast = lambda: fkern.flash_attention(q, k, v, causal=True,  # noqa
+                                             window=window)
+        plain = lambda: ref.flash_attention_ref(q, k, v, causal=True,  # noqa
+                                                window=window)
+        if window is None:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=True, enable_gqa=True)
+        else:
+            pos = torch.arange(s, device=dev)
+            mask = ((pos[None, :] <= pos[:, None])
+                    & (pos[None, :] > pos[:, None] - window))
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=mask, enable_gqa=True)
+        err, worst = attn_error(torch, fast(), plain(), dtype)
+        flops = 4 * b * h * d * attention_pairs(s, s, True, window)
+        nbytes = (2 * b * s * h * d + 2 * b * s * kv * d) * q.element_size()
+        peak = BF16_FLOPS if dtype == bf16 else F32_FLOPS
+        bound = max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3
+        row = {"max_abs_err": err, "worst": worst, "ms": time_ms(torch, fast),
+               "plain_ms": time_ms(torch, plain),
+               "library_ms": time_ms(torch, lib), "bound_ms": bound,
+               "bound_by": ("operations" if flops / peak
+                            >= nbytes / HBM_BYTES_PER_S else "bytes"),
+               "flops": flops, "bytes": nbytes}
+        if label == "main":
+            results["flash_attention"] = row
+        print(f"kernel flash_attention {label:10s} B {b} H {h} KV {kv} S {s} "
+              f"D {d} {str(dtype)[6:]} window {window}: max_abs_err "
+              f"{err:.3e}, worst element at {worst:.3f} of its limit; "
+              f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"sdpa {row['library_ms']:.4f} ms, bound {bound:.4f} ms "
+              f"({row['bound_by']}: {flops:.4g} FLOP, {nbytes} bytes)"
+              + ("" if worst <= 1 else "  FAILED"), flush=True)
+        if not worst <= 1:
+            raise AssertionError(f"flash_attention disagrees with its plain "
+                                 f"version at {label}")
+    return results
+
+
+def quant_decode_phase(torch, qd, ref):
+    """quant_decode_attention against its plain version on one layer's
+    slice of the serve pool ([B, W, KV, Dh] viewed as [B, KV, W, Dh]);
+    returns the numbers of the main shape."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    main_pos = (1, 2048, 1000, 1536, 37, 2047, 512, 1300)
+    # every row past the start of its last run of tiles (at B 8, KV 8 each
+    # row's 32 tiles are cut into 5 runs, the last from slot 1792): a run
+    # lost or merged wrongly shows on every row
+    long_pos = (2048, 1793, 1900, 2047, 1801, 1999, 2020, 1850)
+    cases = [("main", 8, 40, 8, 2048, main_pos),
+             ("mqa", 4, 48, 1, 2048, (2048, 1, 999, 1700)),
+             ("ragged-W", 8, 40, 8, 2000, (2000, 1, 64, 65, 1999, 640, 3,
+                                           1234)),
+             ("scalar", 8, 40, 8, 2048, 777),
+             ("long-rows", 8, 40, 8, 2048, long_pos)]
+    results = {}
+    for label, b, h, kv, w, pos in cases:
+        d = 128
+        q = torch.randn(b, h, d, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        pool = {}
+        for key in ("k", "v"):
+            x = torch.randn(b, w, kv, d, generator=gen, device=dev,
+                            dtype=torch.bfloat16)
+            pool[key], pool[key + "_scale"] = qd.quantize_kv(x)
+        args = (q, pool["k"].transpose(1, 2), pool["k_scale"].transpose(1, 2),
+                pool["v"].transpose(1, 2), pool["v_scale"].transpose(1, 2))
+        p = (torch.tensor(pos, dtype=torch.int32, device=dev)
+             if isinstance(pos, tuple) else pos)
+        fast = lambda: qd.quant_decode_attention(*args, p)  # noqa: E731
+        plain = lambda: ref.quant_decode_ref(*args, p)  # noqa: E731
+        err, worst = attn_error(torch, fast(), plain(), q.dtype)
+        n_split, per = qd.split_plan(b, kv, w, dev)
+        rows = pos if isinstance(pos, tuple) else (pos,) * b
+        slots = sum(min(r, w) for r in rows)
+        # levels (1 byte) and scales (4 bytes) of K and V at each valid slot
+        # and kv head, q and the output (bf16), the positions
+        nbytes = (slots * kv * 2 * (d + 4) + 2 * b * h * d * 2
+                  + 4 * len(rows))
+        flops = 4 * slots * h * d
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+        row = {"max_abs_err": err, "worst": worst, "ms": time_ms(torch, fast),
+               "plain_ms": time_ms(torch, plain), "bound_ms": bound,
+               "bound_by": "bytes", "bytes": nbytes}
+        if label == "main":
+            results["quant_decode_attention"] = row
+        print(f"kernel quant_decode_attention {label:8s} B {b} H {h} KV {kv} "
+              f"W {w} Dh {d} pos {pos} ({n_split} runs of {per} tiles a "
+              f"row): max_abs_err {err:.3e}, worst element at {worst:.3f} of "
+              f"its limit; kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, library none (no single PyTorch "
+              f"call dequantizes and attends), bound {bound:.4f} ms (bytes: "
+              f"{nbytes})" + ("" if worst <= 1 else "  FAILED"), flush=True)
+        if not worst <= 1:
+            raise AssertionError(f"quant_decode_attention disagrees with its "
+                                 f"plain version at {label}")
+    return results
+
+
+def percentile(values, q):
+    vals = sorted(values)
+    return vals[min(int(q * len(vals)), len(vals) - 1)]
+
+
+def serve_path(torch, kerns):
+    """qwen2.5-14b at full width through the engine with the int8 pool:
+    every admission prefills through flash_attention (48 launches), every
+    tick decodes through quant_decode_attention (48 launches)."""
+    from repro_torch import device as devlib
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params, model_specs, param_count
+    from repro_torch.serve import (Engine, LoadSpec, generate_requests,
+                                   replay)
+
+    cfg = get_arch(SERVE_ARCH)
     t0 = time.time()
-    libs = _build.build_all()
-    print(f"built {sorted(libs)} in {time.time() - t0:.2f} s", flush=True)
+    params = init_params(model_specs(cfg), devlib.generator("cuda", 0),
+                         cfg.dtype)
+    torch.cuda.synchronize()
+    n_params = param_count(model_specs(cfg))
+    print(f"serve path: {SERVE_ARCH} at full width ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads over "
+          f"{cfg.n_kv_heads}, {n_params} params, {cfg.dtype}) drawn in "
+          f"{time.time() - t0:.1f} s; device memory allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    reqs = generate_requests(LoadSpec(**SERVE_LOAD), cfg.vocab)
+    eng = Engine(cfg, params, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                 kv_quant=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kerns)
+    t0 = time.perf_counter()
+    done = replay(eng, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts(kerns)
+    ticks = len(eng.timings["decode"])
+    want = {name: 0 for name in counts}
+    want.update(flash_attention=cfg.n_layers * len(reqs),
+                quant_decode_attention=cfg.n_layers * ticks)
+    if counts != want:
+        raise AssertionError(f"serve: launches {counts}, want {want}")
+    if sorted(c.rid for c in done) != [r.rid for r in reqs]:
+        raise AssertionError("serve: not every request completed once")
+    for c, r in zip(sorted(done, key=lambda c: c.rid), reqs):
+        if not (1 <= len(c.tokens) <= r.max_new_tokens and all(
+                0 <= t < cfg.vocab for t in c.tokens)
+                and c.finish_reason in ("length", "capacity")):
+            raise AssertionError(f"serve: request {c.rid} gave {c}")
+    toks = sum(len(c.tokens) for c in done)
+    lats = [c.latency_s for c in done]
+    by_len = {}
+    for r, t in list(zip(reqs, eng.timings["prefill"]))[1:]:
+        by_len.setdefault(len(r.tokens), []).append(1e3 * t)
+    prefill_ms = {n: statistics.median(v) for n, v in sorted(by_len.items())}
+    tick_ms = [1e3 * t for t in eng.timings["decode"][1:]]
+    print(f"serve path: {len(done)} requests, {toks} tokens in {wall:.2f} s: "
+          f"{len(done) / wall:.3f} req/s, {toks / wall:.2f} tok/s, latency "
+          f"p50 {percentile(lats, 0.5):.3f} s p99 {percentile(lats, 0.99):.3f}"
+          f" s; {ticks} decode ticks; launches {counts}; steady prefill ms "
+          f"(median by prompt length, first admission excluded) "
+          f"{ {n: round(v, 2) for n, v in prefill_ms.items()} }; steady "
+          f"decode tick {statistics.median(tick_ms):.2f} ms median, "
+          f"{statistics.mean(tick_ms):.2f} ms mean (first tick "
+          f"{1e3 * eng.timings['decode'][0]:.2f} ms, first admission "
+          f"{1e3 * eng.timings['prefill'][0]:.2f} ms); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return counts, cfg, params, reqs
 
+
+def serve_logits(torch, cfg, params, pair, paths):
+    """Each path's logits for the two requests of ``pair``: the prefill
+    (one row each), then 8 decode ticks of both rows, every path fed the
+    first path's greedy tokens. The first path's prefill rows fill the int8
+    pool, and every path starts each tick from the first path's pool, so
+    the paths differ only in their attention (each still quantizes its
+    new token's K/V from its own activations). ``paths``: name ->
+    ``ModelCtx.attn``; the path named "control" also has each row's first
+    key and value (slot 0, every layer) zeroed before each tick: a fault of
+    one key in every layer. Returns name -> [prefill logits of each
+    request, then each tick's logits]."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.fed.serve import serve_cache
+    from repro_torch.kernels.quant_decode import quantize_kv
+    from repro_torch.models.decode import decode_step, prefill, zeros
+    from repro_torch.models.model import ModelCtx
+
+    dev = torch.device("cuda")
+    row_abs = serve_cache(cfg, ShapeConfig("check_prefill", SERVE_MAX_LEN,
+                                           1, "prefill"))[0]
+    pool_abs = serve_cache(cfg, ShapeConfig("check_decode", SERVE_MAX_LEN, 2,
+                                            "decode"), kv_quant=True)[0]
+    pools = {name: zeros(pool_abs, dev) for name in paths}
+    out = {name: [] for name in paths}
+    lead = next(iter(paths))
+    for i, r in enumerate(pair):
+        tokens = torch.from_numpy(r.tokens[None]).to(dev)
+        for name, attn in paths.items():
+            logits, row = prefill(cfg, params, {"tokens": tokens},
+                                  zeros(row_abs, dev),
+                                  ModelCtx(kind="prefill", attn=attn))
+            out[name].append(logits)
+            if name == lead:
+                for key in ("k", "v"):
+                    levels, scale = quantize_kv(row[key][:, 0])
+                    pools[name][key][:, i] = levels
+                    pools[name][key + "_scale"][:, i] = scale
+    token = torch.cat([lg[:, 0].argmax(-1) for lg in out[lead]]).to(
+        torch.int32)[:, None]
+    pos = torch.tensor([len(r.tokens) for r in pair], dtype=torch.int32,
+                       device=dev)
+    for _ in range(8):
+        for name in paths:
+            if name != lead:
+                for key, buf in pools[name].items():
+                    buf.copy_(pools[lead][key])
+        if "control" in pools:
+            for key in ("k", "v"):
+                pools["control"][key][:, :, 0] = 0
+        for name, attn in paths.items():
+            out[name].append(decode_step(
+                cfg, params, pools[name], token, pos,
+                ModelCtx(kind="decode", attn=attn))[0])
+        token = out[lead][-1][:, 0].argmax(-1).to(torch.int32)[:, None]
+        pos = pos + 1
+    return out
+
+
+def serve_check(torch, cfg, params, reqs):
+    """The served model through the kernels against their plain versions
+    (``ModelCtx(attn="plain")``), same weights: two requests' prefill
+    logits, then 8 decode ticks fed the kernel path's tokens, every path
+    starting each tick from the kernel path's int8 pool.
+
+    In bf16 the two paths round differently wherever an attention output
+    lands near a bf16 rounding boundary, and from there on every later bf16
+    rounding of the 48 layers can differ: the paths part by the model's
+    bf16 rounding noise, which no bf16 implementation avoids. The
+    reference's own path (``attn="reference"``: probabilities rounded to
+    bf16, the cache dequantized to bf16) is the witness of that noise: the
+    kernel path is held to be no farther from the plain one than
+    SERVE_WITNESS times the reference path is. Then the same weights
+    widened to f32 (exactly) run both paths again, where rounding noise is
+    2^16 times smaller, and the kernel path is held within SERVE_F32_RTOL of
+    the plain one, a limit that the control (the plain path with one key
+    of each row zeroed in every layer, see serve_logits) must exceed.
+    Widening turns ``params`` into f32 in place, leaf by leaf (59 GB)."""
+    pair = [reqs[0], next(r for r in reqs if len(r.tokens)
+                          != len(reqs[0].tokens))]
+    names = ["prefill " + str(len(r.tokens)) for r in pair] + [
+        f"tick {t}" for t in range(8)]
+    runs = serve_logits(torch, cfg, params, pair, {
+        "kernel": "kernel", "plain": "plain", "reference": "reference"})
+    rows = []
+    for n, k, p, x in zip(names, runs["kernel"], runs["plain"],
+                          runs["reference"]):
+        agree = int((k[:, -1].argmax(-1) == p[:, -1].argmax(-1)).sum())
+        rows.append((n, rel_err(torch, k, p), rel_err(torch, x, p), agree,
+                     k.shape[0]))
+    for n, kp, xp, agree, of in rows:
+        print(f"serve check bf16 {n:12s}: kernel vs plain {kp:.3e}, "
+              f"reference path vs plain {xp:.3e} (normwise rel err); greedy "
+              f"tokens kernel vs plain agree {agree} of {of}", flush=True)
+    worst = max(kp / max(xp, 1e-30) for _, kp, xp, _, _ in rows)
+    print(f"serve check bf16: kernel path at most {worst:.3f}x the reference "
+          f"path's distance from the plain one (limit {SERVE_WITNESS}); "
+          f"greedy tokens agree in {sum(r[3] for r in rows)} of "
+          f"{sum(r[4] for r in rows)}", flush=True)
+    if not worst <= SERVE_WITNESS:
+        raise AssertionError(f"serve check: the kernel path is {worst:.3f}x "
+                             f"farther from the plain path than the "
+                             f"reference path")
+    del runs
+    for part in ("x", "y"):
+        tree = params[part]
+        for key in sorted(tree):
+            if isinstance(tree[key], dict):
+                for k2 in sorted(tree[key]):
+                    tree[key][k2] = tree[key][k2].float()
+            else:
+                tree[key] = tree[key].float()
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    free_device_memory(torch)
+    runs = serve_logits(torch, f32, params, pair, {
+        "kernel": "kernel", "plain": "plain", "control": "plain"})
+    errs = [rel_err(torch, k, p) for k, p in zip(runs["kernel"],
+                                                 runs["plain"])]
+    control = [rel_err(torch, c, p) for c, p in zip(runs["control"][2:],
+                                                    runs["plain"][2:])]
+    agree = sum(int((k[:, -1].argmax(-1) == p[:, -1].argmax(-1)).sum())
+                for k, p in zip(runs["kernel"], runs["plain"]))
+    print(f"serve check f32 (the same weights widened): kernel vs plain "
+          f"normwise rel err {dict(zip(names, (f'{e:.3e}' for e in errs)))}"
+          f" (limit {SERVE_F32_RTOL}); control (one key zeroed in every "
+          f"layer) vs plain over the ticks "
+          f"{[f'{e:.3e}' for e in control]}; greedy tokens agree in {agree} "
+          f"of {2 * len(errs) - 2}", flush=True)
+    if not max(errs) <= SERVE_F32_RTOL:
+        raise AssertionError(f"serve check f32: kernel and plain paths part "
+                             f"by {max(errs):.3e}")
+    if not min(control) > SERVE_F32_RTOL:
+        raise AssertionError(f"serve check f32: the control parts from the "
+                             f"plain path by only {min(control):.3e}, so the "
+                             f"limit {SERVE_F32_RTOL} could not see a "
+                             f"corrupted key")
+
+
+def adafbio_phases(torch, kern, qkern, ref, ops):
+    """Phases 3-8: the update and codec kernels against their plain
+    versions, then the federated paths; returns the kernels' numbers and
+    the paths' launch counts. The tasks they build are freed on return."""
+    kerns = (kern, qkern)
     segments = message_segments(mnist_width())
     if sum(segments) != MSG_ELEMENTS or len(segments) != 10:
         raise AssertionError(f"message segments {segments}")
@@ -676,14 +1062,56 @@ def main() -> int:
     topk_run(torch, task, cfg)
     round_checks(torch, task, cfg)
     quadratic(torch)
+    return numbers, launches
+
+
+def free_device_memory(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+    gib = 2 ** 30
+    print(f"device memory allocated {torch.cuda.memory_allocated() / gib:.2f} "
+          f"GiB, reserved {torch.cuda.memory_reserved() / gib:.2f} GiB",
+          flush=True)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    print(gpu_line(), flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import flash_attention as fkern
+    from repro_torch.kernels import quant_decode as qd
+    from repro_torch.kernels import quantize as qkern
+    from repro_torch.kernels import storm_update as kern
+
+    t0 = time.time()
+    libs = _build.build_all()
+    print(f"built {sorted(libs)} in {time.time() - t0:.2f} s", flush=True)
+
+    numbers, launches = adafbio_phases(torch, kern, qkern, ref, ops)
+    free_device_memory(torch)
+    numbers.update(flash_phase(torch, fkern, ref))
+    numbers.update(quant_decode_phase(torch, qd, ref))
+    free_device_memory(torch)
+    counts, cfg, params, reqs = serve_path(torch, (kern, qkern, fkern, qd))
+    for name in ("flash_attention", "quant_decode_attention"):
+        launches[name] = counts[name]
+    serve_check(torch, cfg, params, reqs)
 
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": launches[name],
         "max_abs_err": numbers[name]["max_abs_err"],
         "ms": numbers[name]["ms"], "plain_ms": numbers[name]["plain_ms"],
-        "bound_ms": numbers[name]["bound_ms"], "bound_by": "bytes",
-        "library_ms": None} for name in SOURCES]
+        "bound_ms": numbers[name]["bound_ms"],
+        "bound_by": numbers[name].get("bound_by", "bytes"),
+        "library_ms": numbers[name].get("library_ms")} for name in SOURCES]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,11 @@
-from repro_torch.configs.base import (CODECS, FedConfig, PopulationConfig,
+from repro_torch.configs.base import (CODECS, INPUT_SHAPES, ArchConfig,
+                                     EncoderConfig, FedConfig, MoEConfig,
+                                     PopulationConfig, ShapeConfig, SSMConfig,
+                                     get_arch, list_arch_ids, reduced,
                                      validate_codec)
 from repro_torch.configs.paper_tasks import HyperRepConfig
 
-__all__ = ["CODECS", "FedConfig", "HyperRepConfig", "PopulationConfig",
-           "validate_codec"]
+__all__ = ["CODECS", "INPUT_SHAPES", "ArchConfig", "EncoderConfig",
+           "FedConfig", "HyperRepConfig", "MoEConfig", "PopulationConfig",
+           "ShapeConfig", "SSMConfig", "get_arch", "list_arch_ids",
+           "reduced", "validate_codec"]

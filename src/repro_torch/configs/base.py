@@ -1,9 +1,17 @@
-"""Federation configs: ``FedConfig`` and ``PopulationConfig`` with the JAX
-package's field names, defaults and validation, so ``dataclasses.asdict``
-moves a config across."""
+"""Configs with the JAX package's field names, defaults and validation, so
+``dataclasses.asdict`` moves a config across: the federation configs
+(``FedConfig``, ``PopulationConfig``) and the model architectures
+(``ArchConfig`` and its registry, ``ShapeConfig``, ``reduced``).
+
+The registry holds the architectures the port runs so far: the dense family
+(``qwen2.5-14b`` GQA, ``qwen1.5-4b`` MHA, ``granite-20b`` MQA), one module
+each under ``configs/``. The other families come with the slices that port
+their layers (ROADMAP.md).
+"""
 from __future__ import annotations
 
 import dataclasses
+import importlib
 from typing import Optional, Tuple
 
 CODECS = ("none", "int8", "topk")
@@ -198,3 +206,140 @@ class PopulationConfig:
         """True when rounds run the async path (overlapping cohorts,
         delayed arrivals, bounded-staleness gating)."""
         return self.max_staleness != 0
+
+
+# ------------------------------------------------------------ architectures
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    # if > 0, a shared (always-on) dense ffn of this width runs beside them
+    d_ff_shared: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    state_dim: int
+    expand: int = 2            # d_inner = expand * d_model
+    conv_width: int = 4
+    head_dim: int = 64         # mamba2 multi-head state layout
+    version: int = 1           # 1 = mamba1 (falcon-mamba), 2 = mamba2 (zamba2)
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    """Encoder stack for enc-dec (whisper) architectures."""
+    n_layers: int
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                # dense | moe | ssm | hybrid | encdec | vlm
+    source: str                # citation of the published config
+    n_layers: int
+    d_model: int
+    n_heads: int               # 0 for attention-free
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    qkv_bias: bool = False
+    head_dim: int = 0          # 0 -> d_model // n_heads
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-5
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    encoder: Optional[EncoderConfig] = None
+    # hybrid: apply the shared attention block every `shared_attn_every` layers
+    shared_attn_every: int = 0
+    # sliding-window width of the long-context serve variant
+    long_context_window: int = 4096
+    # multimodal early-fusion stub: prefix positions replaced by given embeds
+    n_prefix_embeds: int = 0
+    # federated placement: "replica" or "zero" (kept for the training slice)
+    fed_mode: str = "replica"
+    dtype: str = "bfloat16"
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        assert self.n_heads > 0
+        return self.d_model // self.n_heads
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+_ARCH_IDS = ("qwen2.5-14b", "granite-20b", "qwen1.5-4b")
+
+
+def _module_name(arch_id: str) -> str:
+    return arch_id.replace("-", "_").replace(".", "p")
+
+
+def list_arch_ids() -> Tuple[str, ...]:
+    return _ARCH_IDS
+
+
+def get_arch(arch_id: str) -> ArchConfig:
+    if arch_id not in _ARCH_IDS:
+        raise KeyError(f"unknown arch {arch_id!r}; the port has {_ARCH_IDS} "
+                       f"(the other families come with later slices)")
+    mod = importlib.import_module(
+        f"repro_torch.configs.{_module_name(arch_id)}")
+    return mod.CONFIG
+
+
+def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
+    """A smoke-test-sized variant of the same family (<=2 layers,
+    d_model<=256), field for field as the JAX package's ``reduced``."""
+    d = min(cfg.d_model, 256)
+    heads = min(cfg.n_heads, 4) if cfg.n_heads else 0
+    kv = min(cfg.n_kv_heads, heads) if heads else 0
+    if heads and cfg.n_kv_heads == cfg.n_heads:
+        kv = heads                           # keep MHA archs MHA
+    if heads and cfg.n_kv_heads == 1:
+        kv = 1                               # keep MQA archs MQA
+    changes = dict(
+        n_layers=2,
+        d_model=d,
+        n_heads=heads,
+        n_kv_heads=kv,
+        d_ff=min(cfg.d_ff, 512) if cfg.d_ff else 0,
+        vocab=min(cfg.vocab, 512),
+        head_dim=(d // heads if heads else 0),
+    )
+    if cfg.moe is not None:
+        changes["moe"] = dataclasses.replace(
+            cfg.moe, n_experts=4, top_k=min(cfg.moe.top_k, 2),
+            d_ff_expert=min(cfg.moe.d_ff_expert, 128),
+            d_ff_shared=(min(cfg.moe.d_ff_shared, 128)
+                         if cfg.moe.d_ff_shared else 0))
+    if cfg.ssm is not None:
+        changes["ssm"] = dataclasses.replace(
+            cfg.ssm, state_dim=min(cfg.ssm.state_dim, 16),
+            head_dim=min(cfg.ssm.head_dim, 32))
+    if cfg.encoder is not None:
+        changes["encoder"] = EncoderConfig(n_layers=2)
+    if cfg.shared_attn_every:
+        changes["shared_attn_every"] = 2
+    if cfg.n_prefix_embeds:
+        changes["n_prefix_embeds"] = 8
+    changes.update(overrides)
+    return dataclasses.replace(cfg, **changes)

@@ -1,9 +1,13 @@
-"""Plain PyTorch versions of the update kernels: the CPU path, and the
+"""Plain PyTorch versions of the port's kernels: the CPU path, and the
 oracle the CUDA kernels are held against. Math in f32, cast to the output's
 dtype, in the same order of operations as the kernels."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+NEG_INF = -1e30
 
 
 def storm_update_ref(g_new: torch.Tensor, g_old: torch.Tensor,
@@ -48,3 +52,47 @@ def dequantize_ref(q: torch.Tensor, scale: torch.Tensor,
     """x = q * scale back to f32, per (row, segment) as in
     :func:`quantize_stoch_ref`."""
     return q.float() * _per_element(scale, offsets, q.shape[1])
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """Forward GQA attention, all in f32. q: [B,H,Sq,D]; k,v: [B,KV,Sk,D]
+    (unexpanded: q head h reads kv head h // (H/KV)); positions count from
+    0 in both. Returns [B,H,Sq,D] in q's dtype."""
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    q5 = q.reshape(b, kv, h // kv, sq, d).float() * d ** -0.5
+    logits = torch.einsum("bkgqd,bksd->bkgqs", q5, k.float())
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    m = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        m &= kpos <= qpos
+    if window is not None:
+        m &= kpos > qpos - window
+    p = torch.softmax(torch.where(m, logits, NEG_INF), dim=-1)
+    o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
+    return o.reshape(b, h, sq, d).to(q.dtype)
+
+
+def quant_decode_ref(q: torch.Tensor, k8: torch.Tensor, k_scale: torch.Tensor,
+                     v8: torch.Tensor, v_scale: torch.Tensor,
+                     pos) -> torch.Tensor:
+    """One-token GQA attention over an int8 cache, all in f32. q: [B,H,Dh];
+    k8/v8: [B,KV,S,Dh] int8; scales [B,KV,S] f32; ``pos`` the valid length,
+    a scalar or ``[B]`` per row (the JAX oracle takes only a scalar).
+    Returns [B,H,Dh] in q's dtype."""
+    b, h, dh = q.shape
+    kv, smax = k8.shape[1], k8.shape[2]
+    kf = k8.float() * k_scale[..., None]
+    vf = v8.float() * v_scale[..., None]
+    q4 = q.reshape(b, kv, h // kv, dh).float() * dh ** -0.5
+    logits = torch.einsum("bkgd,bksd->bkgs", q4, kf)
+    slots = torch.arange(smax, device=q.device)
+    pos = torch.as_tensor(pos, device=q.device)
+    valid = slots < pos if pos.dim() == 0 else slots[None] < pos[:, None]
+    valid = valid.reshape(-1, 1, 1, smax)
+    p = torch.softmax(torch.where(valid, logits, NEG_INF), dim=-1)
+    o = torch.einsum("bkgs,bksd->bkgd", p, vf)
+    return o.reshape(b, h, dh).to(q.dtype)

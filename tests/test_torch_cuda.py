@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version, and the fused path of a local step and the int8 codec reaching
-them. Needs a CUDA device and ``nvcc``; without a card every test here
-skips. Run on the card with ``python -m pytest -q tests/test_torch_cuda.py``
+version, and the fused path of a local step, the int8 codec and the serve
+engine reaching them. Needs a CUDA device and ``nvcc``; without a card every
+test here skips. Run on the card with ``python -m pytest -q tests/test_torch_cuda.py``
 (no JAX needed)."""
 import pytest
 import torch
@@ -163,3 +163,148 @@ def test_int8_codec_makes_one_launch_each_per_message(cuda):
     for got_t, want_t in zip((recon, ef2), want):
         for a, b in zip(tree_leaves(got_t), tree_leaves(want_t)):
             torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=1e-6)
+
+
+# ------------------------------------------------------------ serve kernels
+
+def _attn_tol(dtype):
+    """1e-6 in f32 (sums run in another order than the plain version's),
+    2e-2 in bf16 (the output's rounding), the reference's kernel
+    tolerances."""
+    return 2e-2 if dtype == torch.bfloat16 else 1e-6
+
+
+def _attn_close(got, want, dtype):
+    """Element by element, as the reference's kernel tests hold theirs
+    (tests/test_kernels.py:45): |got - want| <= tol + tol * |want|."""
+    torch.cuda.synchronize()
+    tol = _attn_tol(dtype)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("b,h,kv,s,d,causal,window,dtype,strided", [
+    (1, 8, 2, 256, 128, True, None, torch.bfloat16, True),    # GQA
+    (1, 4, 4, 200, 64, True, None, torch.float32, True),      # MHA, ragged
+    (2, 8, 1, 130, 128, True, None, torch.bfloat16, False),   # MQA
+    (1, 4, 2, 512, 64, True, 128, torch.float32, True),       # window
+    (1, 4, 2, 100, 64, False, None, torch.float32, False),    # not causal
+    (1, 4, 2, 77, 128, False, 30, torch.bfloat16, True),      # window only
+])
+def test_flash_attention_matches_plain_version(cuda, b, h, kv, s, d, causal,
+                                               window, dtype, strided):
+    """At the prefill's [B, S, H, D] layout viewed as [B, H, S, D]
+    (``strided``) and at contiguous [B, H, S, D]."""
+    from repro_torch.kernels import flash_attention as fkern
+    g = torch.Generator(device=cuda)
+    g.manual_seed(s * h + d)
+
+    def make(heads):
+        if strided:
+            return torch.randn(b, s, heads, d, generator=g, device=cuda,
+                               dtype=dtype).transpose(1, 2)
+        return torch.randn(b, heads, s, d, generator=g, device=cuda,
+                           dtype=dtype)
+    q, k, v = make(h), make(kv), make(kv)
+    before = fkern.launches["flash_attention"]
+    got = fkern.flash_attention(q, k, v, causal=causal, window=window)
+    assert fkern.launches["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.stride() == q.stride()
+    _attn_close(got, ref.flash_attention_ref(q, k, v, causal=causal,
+                                             window=window), dtype)
+
+
+@pytest.mark.parametrize("b,h,kv,w,d,pos,dtype,offset", [
+    (3, 8, 2, 200, 128, (1, 200, 77), torch.bfloat16, 0),   # [B] pos, ragged W
+    (2, 12, 1, 64, 128, (64, 5), torch.bfloat16, 0),        # MQA
+    (2, 4, 4, 150, 64, 150, torch.float32, 0),              # scalar pos
+    (2, 8, 2, 100, 64, (3, 99), torch.float32, 1),          # misaligned
+    (1, 4, 2, 70, 64, 0, torch.float32, 0),                 # nothing valid
+    (3, 8, 2, 200, 128, (200, 193, 199), torch.bfloat16, 0),  # every run
+])
+def test_quant_decode_matches_plain_version(cuda, b, h, kv, w, d, pos, dtype,
+                                            offset):
+    """Through one layer's [B, W, KV, Dh] pool slice viewed as
+    [B, KV, W, Dh] (the serve path's layout; ``offset`` shifts the levels
+    off 16-byte alignment), at per-row and scalar positions; "every run":
+    each row reaches into the last of the runs its tiles are cut into."""
+    from repro_torch.kernels import quant_decode as qd
+    g = torch.Generator(device=cuda)
+    g.manual_seed(w * h + d)
+    q = torch.randn(b, h, d, generator=g, device=cuda, dtype=dtype)
+
+    def pool():
+        x = torch.randn(b, w, kv, d, generator=g, device=cuda)
+        lv, sc = qd.quantize_kv(x)
+        buf = torch.empty(lv.numel() + offset, dtype=torch.int8, device=cuda)
+        buf[offset:].copy_(lv.view(-1))
+        return buf[offset:].view(b, w, kv, d).transpose(1, 2), sc.transpose(
+            1, 2)
+    (k8, ks), (v8, vs) = pool(), pool()
+    p = (torch.tensor(pos, dtype=torch.int32, device=cuda)
+         if isinstance(pos, tuple) else pos)
+    before = qd.launches["quant_decode_attention"]
+    got = qd.quant_decode_attention(q, k8, ks, v8, vs, p)
+    assert qd.launches["quant_decode_attention"] == before + 1
+    assert got.dtype == dtype
+    _attn_close(got, ref.quant_decode_ref(q, k8, ks, v8, vs, p), dtype)
+
+
+def test_serve_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from repro_torch.kernels import flash_attention as fkern
+    from repro_torch.kernels import quant_decode as qd
+    x = torch.zeros(1, 4, 8, 64, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fkern.flash_attention(x[..., :48], x[..., :48], x[..., :48])
+    with pytest.raises(TypeError, match="dtype"):
+        fkern.flash_attention(x.half(), x.half(), x.half())
+    with pytest.raises(TypeError, match="dtype"):
+        fkern.flash_attention(x, x.bfloat16(), x)
+    with pytest.raises(ValueError, match="split evenly"):
+        fkern.flash_attention(x, x[:, :3], x[:, :3])
+    with pytest.raises(ValueError, match="contiguous last"):
+        t = torch.zeros(1, 4, 64, 8, device=cuda).transpose(2, 3)
+        fkern.flash_attention(t, t, t)
+    q = torch.zeros(2, 4, 64, device=cuda)
+    k8 = torch.zeros(2, 2, 16, 64, dtype=torch.int8, device=cuda)
+    sc = torch.ones(2, 2, 16, device=cuda)
+    with pytest.raises(TypeError, match="int8"):
+        qd.quant_decode_attention(q, k8.float(), sc, k8, sc, 3)
+    with pytest.raises(ValueError, match="scales"):
+        qd.quant_decode_attention(q, k8, sc[:, :, :8], k8, sc, 3)
+    with pytest.raises(ValueError, match="pos"):
+        qd.quant_decode_attention(q, k8, sc, k8, sc,
+                                  torch.ones(3, dtype=torch.int32,
+                                             device=cuda))
+    big = torch.zeros(1, 512, 128, device=cuda)
+    k1 = torch.zeros(1, 1, 16, 128, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        qd.quant_decode_attention(big, k1, sc[:1, :1], k1, sc[:1, :1], 3)
+
+
+def test_engine_on_the_card_launches_both_kernels(cuda):
+    """A reduced model served on the card: one flash launch per layer per
+    admission, one int8-decode launch per layer per tick, and the same
+    tokens as the reference's dequant path ("xla", f32 weights)."""
+    from repro_torch import device as devlib
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels import flash_attention as fkern
+    from repro_torch.kernels import quant_decode as qd
+    from repro_torch.models import init_params, model_specs
+    from repro_torch.serve import Engine, LoadSpec, generate_requests
+    cfg = reduced(get_arch("qwen2.5-14b"), dtype="float32", n_kv_heads=2)
+    params = init_params(model_specs(cfg), devlib.generator(cuda, 0),
+                         "float32")
+    reqs = generate_requests(LoadSpec(n_requests=5, prompt_lens=(4, 70),
+                                      mean_new_tokens=4.0, max_new_cap=6,
+                                      seed=3), cfg.vocab)
+    fkern.reset_launches()
+    qd.reset_launches()
+    eng = Engine(cfg, params, slots=3, max_len=96, kv_quant=True)
+    got = {c.rid: c.tokens for c in eng.run(reqs)}
+    assert fkern.launches["flash_attention"] == cfg.n_layers * len(reqs)
+    assert (qd.launches["quant_decode_attention"]
+            == cfg.n_layers * len(eng.timings["decode"]))
+    want = Engine(cfg, params, slots=3, max_len=96, kv_quant=True,
+                  kv_kernel="xla").run(reqs)
+    assert got == {c.rid: c.tokens for c in want}
