@@ -42,7 +42,8 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
    (f32 math) in the prefill's [B, S, H, D] layout: the full-width prefill
    (qwen2.5-14b: 40 heads over 8, head_dim 128, S 1536, bf16, causal), MHA
    at a ragged S 1000, MQA at granite-20b's 48 heads over 1, a sliding
-   window (S 4096, window 1024) and an f32 case; times kernel, plain version
+   window (S 4096, window 1024), zamba2-1.2b's shared block (32 heads,
+   head_dim 64, S 1536, bf16) and an f32 case; times kernel, plain version
    and ``F.scaled_dot_product_attention`` (the library yardstick, not on
    the path) beside the bound;
 10. quant-decode phase: the int8 decode kernel against its plain version
@@ -51,22 +52,43 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
    multiple of the kernel's tile, a scalar position and every row reaching
    into the last run of tiles the kernel cuts it into; both attention
    phases hold each element of the output at tol * (1 + |plain|);
-11. serve phase: qwen2.5-14b at full width (48 layers, bf16, 14.8 B params
+11. mamba-scan phase: the selective-scan kernel against its plain version,
+   y and the f32 last state at tol * (1 + |plain|) (1e-5 f32, 2e-2 bf16):
+   the full-width prefill (B 1, S 1536, Di 8192, N 16, B and C column
+   views of the [1, 1536, 288] projection), B 2 at S 1024, a ragged Di
+   (8004), S 1 and bf16 inputs; times kernel and plain version beside the
+   bound (the larger of bytes over 3.35 TB/s and the exponentials over the
+   special-function units' rate at the card's clock);
+12. serve phase: qwen2.5-14b at full width (48 layers, bf16, 14.8 B params
    from a seeded generator) through ``Engine(slots=8, max_len=2048,
    kv_quant=True)`` replaying 16 requests of 256, 1024 and 1536 prompt
    tokens: 48 flash launches per admission and 48 int8-decode launches per
    tick, req/s, tok/s, latency, steady prefill and tick times;
-12. serve check: with the same weights, two requests' prefill logits and 8
+13. serve check: with the same weights, two requests' prefill logits and 8
    teacher-forced decode ticks, every path starting each tick from one
    int8 pool, through the kernels against the plain versions: in bf16 beside
    the reference's own path as a witness of bf16 noise, then with the
    weights widened to f32 against a limit that a one-key fault (the
    control) exceeds; and the greedy-token agreement;
-13. one JSON line with every kernel's numbers, then the result line
+14. ssm serve phase: falcon-mamba-7b at full width (64 layers, bf16, 7.3 B
+   params) through ``Engine(slots=8, max_len=2048)`` on the same 16
+   requests: 64 mamba_scan launches per admission and no other kernel;
+15. ssm check: prefill logits and 8 decode ticks through the scan kernel
+   against its plain version, in bf16 beside the reference's chunked scan
+   as a witness, then in f32 against a limit that a one-step scan fault
+   (the state zeroed before the prompt's last 64 steps) exceeds;
+16. hybrid serve phase: zamba2-1.2b at full width (38 mamba2 layers and
+   the shared attention block after each 6) on 8 of the requests: 6 flash
+   launches per admission; then its f32 prefill logits at each prompt
+   length through the kernel path against the plain path, within a limit
+   that a one-key fault (the control) exceeds, and against the reference
+   path where it takes the prompt;
+17. one JSON line with every kernel's numbers, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Every phase either passes or raises, and the script exits nonzero.
 """
+import contextlib
 import dataclasses
 import gc
 import json
@@ -90,12 +112,35 @@ KERNEL_RTOL = 1e-6             # kernel vs plain version, f32
 # where the inputs are f32 (sums in another order) and 2e-2 where they are
 # bf16 (the output's rounding)
 ATTN_TOL = {"float32": 1e-6, "bfloat16": 2e-2}
-SERVE_WITNESS = 2.0            # bf16 serve check, see serve_check
+SERVE_WITNESS = 2.0            # bf16 serve checks, see serve_check
+# mamba_scan vs its plain version, element by element, as ATTN_TOL: 1e-5
+# where the inputs are f32 (the reference's own kernel tolerance,
+# tests/test_kernels.py:236) and 2e-2 where they are bf16 (y's rounding)
+SCAN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+SFU_PER_CLOCK = 16             # exponentials per clock per SM (Hopper SFUs)
 # f32 serve check, normwise (serve_check): on the H100 the kernel path
 # parted from the plain one by at most 2.7e-5 (a prefill's logits; 1.3e-5
 # over the ticks) and the control, one key of each row zeroed in every
 # layer, by at least 8.6e-2; the limit sits about 55 times from each
 SERVE_F32_RTOL = 1.5e-3
+# f32 ssm check (ssm_check), set from the H100's readings (PERF.md
+# section 6, PR 14). Prefill logits, normwise: the kernel path parted from
+# the plain one by at most 1.1e-5 (the reference's chunked scan by as
+# much), the control by at least 5.4e-4. Ticks: the kernel path's distance
+# from the plain one was 0.97-1.04 times the reference path's at every
+# tick; the control's 7.96 and 4.08 times at ticks 0 and 1, falling to
+# 1.71 by tick 7 as the amplified rounding of every path closes on it. The
+# witness bound sits about 2x from each reading of the first two ticks
+SSM_F32_RTOL = 1e-4
+SSM_TICK_WITNESS = 2.0
+SSM_CONTROL_TICKS = 2
+# f32 hybrid check, normwise (hybrid_check): the reference's own
+# kernel-vs-model tolerance (tests/test_kernels.py:259-260). On the H100
+# the kernel path parted from the plain one by at most 3.0e-6 (the
+# reference path by as much) and the control, one key zeroed in each
+# shared-block call, by at least 1.9e-3; the limit sits about 20 times
+# from each
+HYBRID_F32_RTOL = 1e-4
 MAIN_SHAPE = (8, 1_066_240)    # the main path's packed [M, n] x buffer
 MSG_ELEMENTS = 2_173_440       # one client's message at MNIST width
 SOURCES = {"storm_update": "src/repro_torch/kernels/csrc/storm_update.cu",
@@ -105,19 +150,24 @@ SOURCES = {"storm_update": "src/repro_torch/kernels/csrc/storm_update.cu",
            "flash_attention":
                "src/repro_torch/kernels/csrc/flash_attention.cu",
            "quant_decode_attention":
-               "src/repro_torch/kernels/csrc/quant_decode.cu"}
+               "src/repro_torch/kernels/csrc/quant_decode.cu",
+           "mamba_scan": "src/repro_torch/kernels/csrc/mamba_scan.cu"}
 REPLACES = {"storm_update": "src/repro/kernels/storm_update.py:45",
             "adafbio_update": "src/repro/kernels/storm_update.py:80",
             "quantize_stoch": "src/repro/kernels/quantize.py:37",
             "dequantize": "src/repro/kernels/quantize.py:69",
             "flash_attention": "src/repro/kernels/flash_attention.py:63",
-            "quant_decode_attention": "src/repro/kernels/quant_decode.py:64"}
+            "quant_decode_attention": "src/repro/kernels/quant_decode.py:64",
+            "mamba_scan": "src/repro/kernels/mamba_scan.py:44"}
 SERVE_ARCH = "qwen2.5-14b"
 # the serve phase's workload: 16 requests, all at once, prompts of 256,
 # 1024 and 1536 tokens, budgets ~ 1 + Geom(1/16) capped at 32
 SERVE_LOAD = dict(n_requests=16, rate=0.0, prompt_lens=(256, 1024, 1536),
                   mean_new_tokens=16.0, max_new_cap=32, seed=0)
 SERVE_SLOTS, SERVE_MAX_LEN = 8, 2048
+SSM_ARCH = "falcon-mamba-7b"   # the ssm serve phase, SERVE_LOAD's requests
+HYBRID_ARCH = "zamba2-1.2b"    # the hybrid serve phase, 8 of them
+HYBRID_LOAD = dict(SERVE_LOAD, n_requests=8)
 # One round on the card against the same round on the CPU, stage by stage
 # (round_check): each stage starts both devices from the card's state before
 # it, with the same batches and draws, so they differ only in how cuBLAS and
@@ -728,6 +778,8 @@ def flash_phase(torch, fkern, ref):
              ("mha-ragged", 1, 20, 20, 1000, 128, bf16, None),
              ("mqa", 1, 48, 1, 1536, 128, bf16, None),
              ("window", 1, 40, 8, 4096, 128, bf16, 1024),
+             # zamba2-1.2b's shared block at the longest prompt
+             ("hybrid", 1, 32, 32, 1536, 64, bf16, None),
              ("f32", 1, 8, 2, 512, 64, f32, None)]
     results = {}
     for label, b, h, kv, s, d, dtype, window in cases:
@@ -841,30 +893,32 @@ def percentile(values, q):
     return vals[min(int(q * len(vals)), len(vals) - 1)]
 
 
-def serve_path(torch, kerns):
-    """qwen2.5-14b at full width through the engine with the int8 pool:
-    every admission prefills through flash_attention (48 launches), every
-    tick decodes through quant_decode_attention (48 launches)."""
+def serve_path(torch, kerns, arch, load, kv_quant, expect):
+    """``arch`` at full width (bf16 params from a seeded generator) through
+    ``Engine(slots=8, max_len=2048, kv_quant=kv_quant)``, replaying
+    ``load``. ``expect(cfg, admissions, ticks)`` gives the launch count of
+    each kernel the path runs; every other kernel must stay at 0. Returns
+    (launch counts, cfg, params, requests)."""
     from repro_torch import device as devlib
     from repro_torch.configs import get_arch
     from repro_torch.models import init_params, model_specs, param_count
     from repro_torch.serve import (Engine, LoadSpec, generate_requests,
                                    replay)
 
-    cfg = get_arch(SERVE_ARCH)
+    cfg = get_arch(arch)
     t0 = time.time()
     params = init_params(model_specs(cfg), devlib.generator("cuda", 0),
                          cfg.dtype)
     torch.cuda.synchronize()
     n_params = param_count(model_specs(cfg))
-    print(f"serve path: {SERVE_ARCH} at full width ({cfg.n_layers} layers, "
-          f"d_model {cfg.d_model}, {cfg.n_heads} heads over "
-          f"{cfg.n_kv_heads}, {n_params} params, {cfg.dtype}) drawn in "
-          f"{time.time() - t0:.1f} s; device memory allocated "
+    print(f"serve path: {arch} ({cfg.family}) at full width "
+          f"({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads over {cfg.n_kv_heads}, {n_params} params, {cfg.dtype}) "
+          f"drawn in {time.time() - t0:.1f} s; device memory allocated "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
-    reqs = generate_requests(LoadSpec(**SERVE_LOAD), cfg.vocab)
+    reqs = generate_requests(LoadSpec(**load), cfg.vocab)
     eng = Engine(cfg, params, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
-                 kv_quant=True)
+                 kv_quant=kv_quant)
     torch.cuda.reset_peak_memory_stats()
     reset_launches(kerns)
     t0 = time.perf_counter()
@@ -874,17 +928,17 @@ def serve_path(torch, kerns):
     counts = launch_counts(kerns)
     ticks = len(eng.timings["decode"])
     want = {name: 0 for name in counts}
-    want.update(flash_attention=cfg.n_layers * len(reqs),
-                quant_decode_attention=cfg.n_layers * ticks)
+    want.update(expect(cfg, len(reqs), ticks))
     if counts != want:
-        raise AssertionError(f"serve: launches {counts}, want {want}")
+        raise AssertionError(f"serve {arch}: launches {counts}, want {want}")
     if sorted(c.rid for c in done) != [r.rid for r in reqs]:
-        raise AssertionError("serve: not every request completed once")
+        raise AssertionError(f"serve {arch}: not every request completed "
+                             f"once")
     for c, r in zip(sorted(done, key=lambda c: c.rid), reqs):
         if not (1 <= len(c.tokens) <= r.max_new_tokens and all(
                 0 <= t < cfg.vocab for t in c.tokens)
                 and c.finish_reason in ("length", "capacity")):
-            raise AssertionError(f"serve: request {c.rid} gave {c}")
+            raise AssertionError(f"serve {arch}: request {c.rid} gave {c}")
     toks = sum(len(c.tokens) for c in done)
     lats = [c.latency_s for c in done]
     by_len = {}
@@ -892,11 +946,12 @@ def serve_path(torch, kerns):
         by_len.setdefault(len(r.tokens), []).append(1e3 * t)
     prefill_ms = {n: statistics.median(v) for n, v in sorted(by_len.items())}
     tick_ms = [1e3 * t for t in eng.timings["decode"][1:]]
-    print(f"serve path: {len(done)} requests, {toks} tokens in {wall:.2f} s: "
-          f"{len(done) / wall:.3f} req/s, {toks / wall:.2f} tok/s, latency "
-          f"p50 {percentile(lats, 0.5):.3f} s p99 {percentile(lats, 0.99):.3f}"
-          f" s; {ticks} decode ticks; launches {counts}; steady prefill ms "
-          f"(median by prompt length, first admission excluded) "
+    print(f"serve path {arch}: {len(done)} requests, {toks} tokens in "
+          f"{wall:.2f} s: {len(done) / wall:.3f} req/s, {toks / wall:.2f} "
+          f"tok/s, latency p50 {percentile(lats, 0.5):.3f} s p99 "
+          f"{percentile(lats, 0.99):.3f} s; {ticks} decode ticks; launches "
+          f"{counts}; steady prefill ms (median by prompt length, first "
+          f"admission excluded) "
           f"{ {n: round(v, 2) for n, v in prefill_ms.items()} }; steady "
           f"decode tick {statistics.median(tick_ms):.2f} ms median, "
           f"{statistics.mean(tick_ms):.2f} ms mean (first tick "
@@ -1009,16 +1064,7 @@ def serve_check(torch, cfg, params, reqs):
                              f"farther from the plain path than the "
                              f"reference path")
     del runs
-    for part in ("x", "y"):
-        tree = params[part]
-        for key in sorted(tree):
-            if isinstance(tree[key], dict):
-                for k2 in sorted(tree[key]):
-                    tree[key][k2] = tree[key][k2].float()
-            else:
-                tree[key] = tree[key].float()
-    f32 = dataclasses.replace(cfg, dtype="float32")
-    free_device_memory(torch)
+    f32 = widen_to_f32(torch, cfg, params)
     runs = serve_logits(torch, f32, params, pair, {
         "kernel": "kernel", "plain": "plain", "control": "plain"})
     errs = [rel_err(torch, k, p) for k, p in zip(runs["kernel"],
@@ -1041,6 +1087,326 @@ def serve_check(torch, cfg, params, reqs):
                              f"plain path by only {min(control):.3e}, so the "
                              f"limit {SERVE_F32_RTOL} could not see a "
                              f"corrupted key")
+
+
+def widen_to_f32(torch, cfg, params):
+    """Widen ``params`` to f32 in place, leaf by leaf (exact), and return
+    the f32 config."""
+    for part in ("x", "y"):
+        tree = params[part]
+        for key in sorted(tree):
+            if isinstance(tree[key], dict):
+                for k2 in sorted(tree[key]):
+                    tree[key][k2] = tree[key][k2].float()
+            else:
+                tree[key] = tree[key].float()
+    free_device_memory(torch)
+    return dataclasses.replace(cfg, dtype="float32")
+
+
+def sm_clock_hz():
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def mamba_scan_phase(torch, mk, ref):
+    """mamba_scan against its plain version, y and h_last element by
+    element, with the inputs as ``mamba1_seq`` makes them (dt a softplus,
+    A = -(1..N) per channel as A_log's init gives it, B and C column views
+    of the [B, S, dt_rank + 2N] projection); returns the numbers of the
+    full-width prefill shape."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    f32, bf16 = torch.float32, torch.bfloat16
+    dtr = 256                  # falcon-mamba-7b's dt_rank, d_model / 16
+    cases = [("main", 1, 1536, 8192, 16, f32),
+             ("B=2", 2, 1024, 8192, 16, f32),
+             ("ragged-Di", 1, 1024, 8004, 16, f32),
+             ("S=1", 1, 1, 8192, 16, f32),
+             ("bf16", 1, 1536, 8192, 16, bf16)]
+    sfu_per_s = (SFU_PER_CLOCK * sm_clock_hz()
+                 * torch.cuda.get_device_properties(dev).multi_processor_count)
+    results = {}
+    for label, b, s, di, n, dtype in cases:
+        def rand(*shape):
+            return torch.randn(*shape, generator=gen, device=dev)
+        x = rand(b, s, di).to(dtype)
+        dt = F.softplus(rand(b, s, di)).to(dtype)
+        A = -torch.arange(1, n + 1, dtype=f32, device=dev).expand(
+            di, n).contiguous()
+        proj = rand(b, s, dtr + 2 * n).to(dtype)
+        args = (x, dt, A, proj[..., dtr:dtr + n], proj[..., dtr + n:])
+        fast = lambda: mk.mamba_scan(*args)  # noqa: E731
+        plain = lambda: ref.mamba_scan_ref(*args)  # noqa: E731
+        (y, h), (y_ref, h_ref) = fast(), plain()
+        torch.cuda.synchronize()
+        tol = SCAN_TOL[str(dtype).removeprefix("torch.")]
+        errs, worst = [], 0.0
+        for got, want in ((y, y_ref), (h, h_ref)):
+            diff = (got.float() - want.float()).abs()
+            errs.append(diff.max().item())
+            worst = max(worst, (diff / (tol * (1 + want.float().abs())))
+                        .max().item())
+        # each input read once, y and h_last written once; per (b, t, d, n)
+        # one exponential and about 6 f32 operations (dt*A, the state's
+        # FMA, (dt*x)*B, the FMA of y)
+        size = x.element_size()
+        nbytes = (3 * b * s * di * size + 2 * b * s * n * size
+                  + 4 * di * n + 4 * b * di * n)
+        exps = b * s * di * n
+        t_bytes, t_exp = nbytes / HBM_BYTES_PER_S, exps / sfu_per_s
+        t_flops = 6 * exps / F32_FLOPS
+        bound = max(t_bytes, t_exp, t_flops) * 1e3
+        row = {"max_abs_err": max(errs), "worst": worst,
+               "bound_ms": bound, "library_ms": None,
+               "bound_by": "bytes" if t_bytes >= max(t_exp, t_flops)
+               else "operations", "bytes": nbytes, "exps": exps}
+        timed = label in ("main", "bf16")
+        if timed:
+            row.update(ms=time_ms(torch, fast), plain_ms=time_ms(
+                torch, plain))
+        if label == "main":
+            results["mamba_scan"] = row
+        print(f"kernel mamba_scan {label:9s} B {b} S {s} Di {di} N {n} "
+              f"{str(dtype)[6:]}: max_abs_err y {errs[0]:.3e} h_last "
+              f"{errs[1]:.3e}, worst element at {worst:.3f} of its limit "
+              f"(tol {tol})"
+              + (f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}"
+                 f" ms, library none (no single PyTorch call runs the "
+                 f"selective scan), bound {bound:.4f} ms ({row['bound_by']}"
+                 f": {nbytes} bytes {t_bytes * 1e3:.4f} ms, {exps} "
+                 f"exponentials {t_exp * 1e3:.4f} ms, f32 operations "
+                 f"{t_flops * 1e3:.4f} ms)" if timed else "")
+              + ("" if worst <= 1 else "  FAILED"), flush=True)
+        if not worst <= 1:
+            raise AssertionError(f"mamba_scan disagrees with its plain "
+                                 f"version at {label}")
+    return results
+
+
+@contextlib.contextmanager
+def faulty(ref, name, fault):
+    """While the block runs, the plain version ``ref.<name>`` is replaced
+    by ``fault(plain)``: the controls of ssm_check and hybrid_check."""
+    plain = getattr(ref, name)
+    setattr(ref, name, fault(plain))
+    try:
+        yield
+    finally:
+        setattr(ref, name, plain)
+
+
+def state_zeroed(plain):
+    """The plain scan with a one-step fault: in every layer the state is
+    zeroed before the prompt's last 64 steps (the last tile the kernel
+    stages), as a scan that lost its carry there would."""
+    import torch
+
+    def control(x, dt, A, Bm, Cm, h0=None):
+        k = x.shape[1] - 64
+        y0, _ = plain(x[:, :k], dt[:, :k], A, Bm[:, :k], Cm[:, :k])
+        y1, h = plain(x[:, k:], dt[:, k:], A, Bm[:, k:], Cm[:, k:])
+        return torch.cat([y0, y1], dim=1), h
+    return control
+
+
+def first_key_zeroed(plain):
+    """The plain attention with the first key and value of every row
+    zeroed, in each call: a fault of one key."""
+    def control(q, k, v, **kw):
+        k, v = k.clone(), v.clone()
+        k[:, :, 0] = 0
+        v[:, :, 0] = 0
+        return plain(q, k, v, **kw)
+    return control
+
+
+def ssm_logits(torch, ref, cfg, params, pair, paths):
+    """Each path's logits for the two requests of ``pair``: the prefill
+    (one row each, its state and conv tail into the path's own 2-row
+    pool), then 8 decode ticks of both rows from that pool, every path fed
+    the first path's greedy tokens. The paths differ only in the prefill's
+    scan; each tick carries the state its own prefill left. ``paths``: name
+    -> ``ModelCtx.attn``; the path named "control" prefills under
+    ``state_zeroed``. Returns name -> [prefill logits of each request, then
+    each tick's logits]."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.fed.serve import serve_cache
+    from repro_torch.models.decode import decode_step, prefill, zeros
+    from repro_torch.models.model import ModelCtx
+
+    dev = torch.device("cuda")
+    row_abs = serve_cache(cfg, ShapeConfig("check_prefill", SERVE_MAX_LEN,
+                                           1, "prefill"))[0]
+    pool_abs = serve_cache(cfg, ShapeConfig("check_decode", SERVE_MAX_LEN, 2,
+                                            "decode"))[0]
+    pools = {name: zeros(pool_abs, dev) for name in paths}
+    out = {name: [] for name in paths}
+    lead = next(iter(paths))
+    for i, r in enumerate(pair):
+        tokens = torch.from_numpy(r.tokens[None]).to(dev)
+        for name, attn in paths.items():
+            with (faulty(ref, "mamba_scan_ref", state_zeroed)
+                  if name == "control" else contextlib.nullcontext()):
+                logits, row = prefill(cfg, params, {"tokens": tokens},
+                                      zeros(row_abs, dev),
+                                      ModelCtx(kind="prefill", attn=attn))
+            out[name].append(logits)
+            for key, buf in pools[name].items():
+                buf[:, i] = row[key][:, 0]
+    token = torch.cat([lg[:, 0].argmax(-1) for lg in out[lead]]).to(
+        torch.int32)[:, None]
+    pos = torch.tensor([len(r.tokens) for r in pair], dtype=torch.int32,
+                       device=dev)
+    for _ in range(8):
+        for name in paths:
+            out[name].append(decode_step(
+                cfg, params, pools[name], token, pos,
+                ModelCtx(kind="decode"))[0])
+        token = out[lead][-1][:, 0].argmax(-1).to(torch.int32)[:, None]
+        pos = pos + 1
+    return out
+
+
+def ssm_check(torch, ref, cfg, params, reqs):
+    """falcon-mamba-7b through the mamba_scan kernel against its plain
+    version (``ModelCtx(attn="plain")``), same weights: two requests'
+    prefill logits, then 8 decode ticks fed the kernel path's tokens, each
+    path from the state its own prefill left.
+
+    In bf16, as serve_check: the reference's chunked scan is the witness of
+    the model's bf16 noise, and the kernel path is held to be no farther
+    from the plain one than SERVE_WITNESS times the reference path is.
+    Then the weights widened to f32 (in place, 29 GB). The prefill logits,
+    where the kernel runs, are held within SSM_F32_RTOL of the plain path's,
+    a limit that the control (the plain path with each layer's state zeroed
+    64 steps before the end of the prompt) must exceed. The random model
+    amplifies any difference in its state from tick to tick, rounding
+    included (8 ticks take the distance from 1e-5 to 3e-3), so the ticks
+    are held against a witness: the kernel path within SSM_TICK_WITNESS
+    times the f32 reference path's distance at every tick, a bound that the
+    control must exceed over the first SSM_CONTROL_TICKS ticks, before the
+    amplified rounding of every path closes on it."""
+    pair = [reqs[0], next(r for r in reqs if len(r.tokens)
+                          != len(reqs[0].tokens))]
+    names = ["prefill " + str(len(r.tokens)) for r in pair] + [
+        f"tick {t}" for t in range(8)]
+    runs = ssm_logits(torch, ref, cfg, params, pair, {
+        "kernel": "kernel", "plain": "plain", "reference": "reference"})
+    rows = [(n, rel_err(torch, k, p), rel_err(torch, x, p))
+            for n, k, p, x in zip(names, runs["kernel"], runs["plain"],
+                                  runs["reference"])]
+    for n, kp, xp in rows:
+        print(f"ssm check bf16 {n:12s}: kernel vs plain {kp:.3e}, reference "
+              f"path vs plain {xp:.3e} (normwise rel err)", flush=True)
+    worst = max(kp / max(xp, 1e-30) for _, kp, xp in rows)
+    print(f"ssm check bf16: kernel path at most {worst:.3f}x the reference "
+          f"path's distance from the plain one (limit {SERVE_WITNESS})",
+          flush=True)
+    if not worst <= SERVE_WITNESS:
+        raise AssertionError(f"ssm check: the kernel path is {worst:.3f}x "
+                             f"farther from the plain path than the "
+                             f"reference path")
+    del runs
+    f32 = widen_to_f32(torch, cfg, params)
+    runs = ssm_logits(torch, ref, f32, params, pair, {
+        "kernel": "kernel", "plain": "plain", "reference": "reference",
+        "control": "plain"})
+    err = {name: [rel_err(torch, g, p) for g, p in zip(runs[name],
+                                                       runs["plain"])]
+           for name in runs if name != "plain"}
+    for i, n in enumerate(names):
+        print(f"ssm check f32 {n:12s}: vs plain (normwise rel err) "
+              + ", ".join(f"{name} {e[i]:.3e}" for name, e in err.items()),
+              flush=True)
+    witness = [SSM_TICK_WITNESS * max(e, 1e-30)
+               for e in err["reference"][2:]]
+    kernel_ratio = max(k / w for k, w in zip(err["kernel"][2:], witness))
+    control_ratio = min(c / w for c, w in zip(
+        err["control"][2:2 + SSM_CONTROL_TICKS], witness))
+    print(f"ssm check f32: prefill kernel vs plain at most "
+          f"{max(err['kernel'][:2]):.3e}, control at least "
+          f"{min(err['control'][:2]):.3e} (limit {SSM_F32_RTOL}); ticks "
+          f"kernel at most {kernel_ratio:.3f} of {SSM_TICK_WITNESS}x the "
+          f"reference path's distance, control at least {control_ratio:.3f} "
+          f"of it over the first {SSM_CONTROL_TICKS} ticks", flush=True)
+    if not max(err["kernel"][:2]) <= SSM_F32_RTOL:
+        raise AssertionError(f"ssm check f32: kernel and plain prefill "
+                             f"logits part by {max(err['kernel'][:2]):.3e}")
+    if not min(err["control"][:2]) > SSM_F32_RTOL:
+        raise AssertionError(f"ssm check f32: the control parts from the "
+                             f"plain prefill by only "
+                             f"{min(err['control'][:2]):.3e}, so the limit "
+                             f"{SSM_F32_RTOL} could not see a one-step scan "
+                             f"fault")
+    if not kernel_ratio <= 1:
+        raise AssertionError(f"ssm check f32: over the ticks the kernel path "
+                             f"is {kernel_ratio * SSM_TICK_WITNESS:.3f}x "
+                             f"farther "
+                             f"from the plain path than the reference path")
+    if not control_ratio > 1:
+        raise AssertionError("ssm check f32: the control stays within the "
+                             "ticks' witness bound")
+
+
+def hybrid_check(torch, ref, cfg, params, reqs):
+    """zamba2-1.2b's prefill logits with the weights widened to f32 (in
+    place), for one prompt of each length in ``reqs``: the kernel path (the
+    shared block on flash_attention) against the plain path
+    (``flash_attention_ref``), held within HYBRID_F32_RTOL, a limit that the
+    control (the plain path with the first key and value of every row
+    zeroed in each shared-block call) must exceed. The reference path is a
+    witness, held to the same limit, for the prompts it takes (at most
+    ``attn_chunk`` tokens: past it the reference's chunked attention needs
+    a multiple of the chunk)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.fed.serve import serve_cache
+    from repro_torch.models.decode import prefill, zeros
+    from repro_torch.models.model import ModelCtx
+
+    dev = torch.device("cuda")
+    f32 = widen_to_f32(torch, cfg, params)
+    row_abs = serve_cache(f32, ShapeConfig("check_prefill", SERVE_MAX_LEN,
+                                           1, "prefill"))[0]
+    prompts = {len(r.tokens): r for r in reversed(reqs)}
+    errs = {}
+    for n, r in sorted(prompts.items()):
+        tokens = torch.from_numpy(r.tokens[None]).to(dev)
+
+        def logits(attn):
+            return prefill(f32, params, {"tokens": tokens},
+                           zeros(row_abs, dev),
+                           ModelCtx(kind="prefill", attn=attn))[0]
+        plain, kernel = logits("plain"), logits("kernel")
+        row = {"kernel": rel_err(torch, kernel, plain)}
+        with faulty(ref, "flash_attention_ref", first_key_zeroed):
+            row["control"] = rel_err(torch, logits("plain"), plain)
+        if n <= ModelCtx().attn_chunk:
+            row["reference"] = rel_err(torch, kernel, logits("reference"))
+        errs[n] = row
+        print(f"hybrid check f32 prefill {n}: normwise rel err kernel vs "
+              f"plain {row['kernel']:.3e}, control vs plain "
+              f"{row['control']:.3e}"
+              + (f", kernel vs reference path {row['reference']:.3e}"
+                 if "reference" in row else "")
+              + f" (limit {HYBRID_F32_RTOL})", flush=True)
+    worst = max(e for row in errs.values() for k, e in row.items()
+                if k != "control")
+    if not worst <= HYBRID_F32_RTOL:
+        raise AssertionError(f"hybrid check f32: the kernel path parts from "
+                             f"the plain or reference path by {worst:.3e}")
+    control = min(row["control"] for row in errs.values())
+    if not control > HYBRID_F32_RTOL:
+        raise AssertionError(f"hybrid check f32: the control parts from the "
+                             f"plain path by only {control:.3e}, so the "
+                             f"limit {HYBRID_F32_RTOL} could not see a "
+                             f"zeroed key")
 
 
 def adafbio_phases(torch, kern, qkern, ref, ops):
@@ -1086,6 +1452,7 @@ def main() -> int:
 
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import flash_attention as fkern
+    from repro_torch.kernels import mamba_scan as mk
     from repro_torch.kernels import quant_decode as qd
     from repro_torch.kernels import quantize as qkern
     from repro_torch.kernels import storm_update as kern
@@ -1098,11 +1465,34 @@ def main() -> int:
     free_device_memory(torch)
     numbers.update(flash_phase(torch, fkern, ref))
     numbers.update(quant_decode_phase(torch, qd, ref))
+    numbers.update(mamba_scan_phase(torch, mk, ref))
     free_device_memory(torch)
-    counts, cfg, params, reqs = serve_path(torch, (kern, qkern, fkern, qd))
+    kerns = (kern, qkern, fkern, qd, mk)
+    counts, cfg, params, reqs = serve_path(
+        torch, kerns, SERVE_ARCH, SERVE_LOAD, True,
+        lambda cfg, admissions, ticks: {
+            "flash_attention": cfg.n_layers * admissions,
+            "quant_decode_attention": cfg.n_layers * ticks})
     for name in ("flash_attention", "quant_decode_attention"):
         launches[name] = counts[name]
     serve_check(torch, cfg, params, reqs)
+    del params
+    free_device_memory(torch)
+    counts, cfg, params, reqs = serve_path(
+        torch, kerns, SSM_ARCH, SERVE_LOAD, False,
+        lambda cfg, admissions, ticks: {
+            "mamba_scan": cfg.n_layers * admissions})
+    launches["mamba_scan"] = counts["mamba_scan"]
+    ssm_check(torch, ref, cfg, params, reqs)
+    del params
+    free_device_memory(torch)
+    counts, cfg, params, reqs = serve_path(
+        torch, kerns, HYBRID_ARCH, HYBRID_LOAD, False,
+        lambda cfg, admissions, ticks: {
+            "flash_attention": (cfg.n_layers // cfg.shared_attn_every)
+            * admissions})
+    hybrid_check(torch, ref, cfg, params, reqs)
+    del params
 
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCES[name],

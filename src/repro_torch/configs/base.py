@@ -3,10 +3,12 @@
 (``FedConfig``, ``PopulationConfig``) and the model architectures
 (``ArchConfig`` and its registry, ``ShapeConfig``, ``reduced``).
 
-The registry holds the architectures the port runs so far: the dense family
-(``qwen2.5-14b`` GQA, ``qwen1.5-4b`` MHA, ``granite-20b`` MQA), one module
-each under ``configs/``. The other families come with the slices that port
-their layers (ROADMAP.md).
+The registry holds the architectures the port runs so far, one module each
+under ``configs/``: the dense family (``qwen2.5-14b`` GQA, ``qwen1.5-4b``
+MHA, ``granite-20b`` MQA), the ssm family (``falcon-mamba-7b``, mamba1)
+and the hybrid family (``zamba2-1.2b``, mamba2 with a shared attention
+block). The other families come with the slices that port their layers
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -286,7 +288,8 @@ INPUT_SHAPES = {
     "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
 }
 
-_ARCH_IDS = ("qwen2.5-14b", "granite-20b", "qwen1.5-4b")
+_ARCH_IDS = ("qwen2.5-14b", "granite-20b", "qwen1.5-4b", "falcon-mamba-7b",
+             "zamba2-1.2b")
 
 
 def _module_name(arch_id: str) -> str:

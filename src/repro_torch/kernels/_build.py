@@ -21,7 +21,8 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("storm_update", "quantize", "flash_attention", "quant_decode")
+SOURCES = ("storm_update", "quantize", "flash_attention", "quant_decode",
+           "mamba_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -96,3 +96,24 @@ def quant_decode_ref(q: torch.Tensor, k8: torch.Tensor, k_scale: torch.Tensor,
     p = torch.softmax(torch.where(valid, logits, NEG_INF), dim=-1)
     o = torch.einsum("bkgs,bksd->bkgd", p, vf)
     return o.reshape(b, h, dh).to(q.dtype)
+
+
+def mamba_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bm: torch.Tensor, Cm: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None):
+    """Selective scan (mamba1 core), one step at a time, all in f32:
+    h_t = exp(dt_t A) * h_{t-1} + (dt_t x_t) B_t and y_t = h_t . C_t.
+    x, dt: [B,S,Di]; A: [Di,N]; Bm, Cm: [B,S,N]; h0: [B,Di,N] or None
+    (zeros). Returns (y [B,S,Di] in x's dtype, h_last [B,Di,N] f32)."""
+    b, s, di = x.shape
+    xf, dtf = x.float(), dt.float()
+    Bf, Cf, Af = Bm.float(), Cm.float(), A.float()
+    h = (torch.zeros((b, di, Af.shape[-1]), dtype=torch.float32,
+                     device=x.device) if h0 is None else h0.float())
+    ys = []
+    for t in range(s):
+        a = torch.exp(dtf[:, t, :, None] * Af)                 # [B,Di,N]
+        bx = (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :]
+        h = a * h + bx
+        ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype), h

@@ -1,10 +1,13 @@
 """Where the serve path spends its time on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        [--arch qwen2.5-14b | falcon-mamba-7b | zamba2-1.2b]
 
-Builds qwen2.5-14b at full width (seeded bf16 params, the configuration of
-``chip_smoke.py``'s serve phase) behind ``Engine(slots=8, max_len=2048,
-kv_quant=True)``, fills the 8 slots with prompts of ``PROMPT`` tokens (the
+Builds the architecture at full width (seeded bf16 params, the
+configurations of ``chip_smoke.py``'s serve phases) behind
+``Engine(slots=8, max_len=2048)``, with the int8 KV pool for the families
+that have an attention KV cache (qwen2.5-14b; the ssm and hybrid families
+refuse it), fills the 8 slots with prompts of ``PROMPT`` tokens (the
 first admission warms up), then traces one more admission (a prefill) and
 ``TICKS`` decode ticks with ``torch.profiler``: the host-clock time of
 each, the device's busy time (the sum of kernel and copy durations) and
@@ -26,6 +29,7 @@ from repro_torch import device as devlib
 from repro_torch.configs import get_arch, reduced
 from repro_torch.models import init_params, model_specs
 from repro_torch.serve import Engine, Request
+from repro_torch.serve.engine import QUANT_FAMILIES
 
 PROMPT = 1024   # tokens per prompt
 TICKS = 4       # decode ticks traced
@@ -66,8 +70,9 @@ def main(argv=None) -> int:
         cfg, prompt = reduced(cfg), 16
     params = init_params(model_specs(cfg), devlib.generator(dev, 0),
                          cfg.dtype)
-    eng = Engine(cfg, params, slots=8, max_len=2 * prompt, kv_quant=True,
-                 device=dev)
+    kv_quant = cfg.family in QUANT_FAMILIES
+    eng = Engine(cfg, params, slots=8, max_len=2 * prompt,
+                 kv_quant=kv_quant, device=dev)
     rng = np.random.default_rng(0)
 
     def request(rid):
@@ -86,8 +91,8 @@ def main(argv=None) -> int:
         eng._admit(eng._queue.popleft(), eng._free.pop(), [])
         devlib.fence(dev)
         wall = time.perf_counter() - t0
-    report(f"admission ({prompt}-token prefill, int8 quantize and scatter)",
-           prof, wall)
+    report(f"admission ({prompt}-token prefill, "
+           f"{'int8 quantize and ' if kv_quant else ''}scatter)", prof, wall)
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(TICKS):

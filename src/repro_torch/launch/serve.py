@@ -5,12 +5,19 @@ CUDA card.
         --slots 8 --max-len 2048 --kv-quant --requests 16 \
         --prompt-lens 256,1024,1536
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
+        --slots 8 --max-len 2048 --requests 16 --prompt-lens 256,1024,1536
+
 serves seed-initialized params (the weights' values do not change the
-work). ``--device cpu`` runs the plain PyTorch paths on the CPU, for a
-``--reduced`` model. The flags are the JAX launcher's; those that need a
-part of the port still to come raise and name it: ``--ckpt`` (the
-checkpoint bridge reads the LM trainer's state, the LM-training slice),
-``--mesh local`` (the sharding slice), ``--metrics-out`` (the obs/ slice).
+work): the dense family (qwen2.5-14b, qwen1.5-4b, granite-20b), the ssm
+family (falcon-mamba-7b, its prefill on the ``mamba_scan`` kernel) and the
+hybrid family (zamba2-1.2b); ``--kv-quant`` needs an attention KV cache,
+so the ssm and hybrid families refuse it. ``--device cpu`` runs the plain
+PyTorch paths on the CPU, for a ``--reduced`` model. The flags are the JAX
+launcher's; those that need a part of the port still to come raise and
+name it: ``--ckpt`` (the checkpoint bridge reads the LM trainer's state,
+the LM-training slice), ``--mesh local`` (the sharding slice),
+``--metrics-out`` (the obs/ slice).
 """
 from __future__ import annotations
 
@@ -26,7 +33,9 @@ from repro_torch.serve import Engine, LoadSpec, generate_requests, replay
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="architecture id (qwen2.5-14b, qwen1.5-4b, "
+                         "granite-20b, falcon-mamba-7b, zamba2-1.2b)")
     ap.add_argument("--reduced", action="store_true",
                     help="smoke-size variant of the same family")
     ap.add_argument("--ckpt", default=None,
@@ -42,12 +51,14 @@ def parse_args(argv=None):
                     help="per-slot KV-cache capacity (prompt + generated)")
     ap.add_argument("--kv-quant", action="store_true",
                     help="int8 KV-cache pool: prefill rows quantize on the "
-                         "way in, decode attends through the int8 kernel")
+                         "way in, decode attends through the int8 kernel "
+                         "(dense family only: ssm and hybrid raise)")
     ap.add_argument("--kv-kernel", default="auto", choices=list(KV_KERNELS),
-                    help="attention path of prefill and int8 decode: "
-                         "kernel (the CUDA kernels), xla (the reference's "
-                         "paths: attend_full, dequantize then "
-                         "attend_decode); auto = the kernels on a CUDA "
+                    help="path of prefill and int8 decode: kernel (the "
+                         "CUDA kernels: flash attention, int8 decode, the "
+                         "selective scan), xla (the reference's paths: "
+                         "attend_full, dequantize then attend_decode, the "
+                         "chunked scan); auto = the kernels on a CUDA "
                          "device, their plain versions on the CPU")
     ap.add_argument("--mesh", default="none", choices=["none", "local"],
                     help="local raises: sharded serving comes with the "

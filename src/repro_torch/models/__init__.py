@@ -1,6 +1,7 @@
-"""The port's models: the dense transformer (``model``), its attention
-primitives (``attention``), parameter specs (``params``) and the serving
-paths, prefill and one-token decode against a KV cache (``decode``)."""
+"""The port's models: the dense, ssm and hybrid families (``model``), their
+attention primitives (``attention``) and selective state-space layers
+(``ssm``), parameter specs (``params``) and the serving paths, prefill and
+one-token decode against a KV cache or SSM state (``decode``)."""
 from repro_torch.models.decode import (cache_spec, decode_step, init_cache,
                                        prefill)
 from repro_torch.models.model import (ModelCtx, features, forward,

@@ -1,10 +1,16 @@
-"""Serving paths of the dense family: prefill (build the cache) and the
-one-token decode against it (``src/repro/models/decode.py``).
+"""Serving paths: prefill (build the cache) and the one-token decode
+against it (``src/repro/models/decode.py``), for the dense, ssm and hybrid
+families.
 
-Cache layout (the leading dim walks the layers):
-  {"k", "v": [L,B,W,KV,Dh]}   W = window (ring) or max_len
-  with ``quant=True`` the K/V levels are int8 and
-  {"k_scale", "v_scale": [L,B,W,KV]} f32 hold one scale per (token, head).
+Cache layouts (the leading dim walks the layers):
+  dense/vlm : {"k", "v": [L,B,W,KV,Dh]}   W = window (ring) or max_len
+              with ``quant=True`` the K/V levels are int8 and
+              {"k_scale", "v_scale": [L,B,W,KV]} f32 hold one scale per
+              (token, head)
+  ssm       : {"h": [L,B,di,N] f32, "conv": [L,B,cw-1,di]}
+  hybrid    : {"h": [L,B,H,P,N] f32, "conv": [L,B,cw-1,di+2N]} and the
+              shared block's {"k", "v": [nseg,B,W,KV,Dh]} (bf16 on the
+              serve path: the family has no int8 pool)
 
 ``pos`` is the number of tokens already in the cache; RoPE uses absolute
 positions, so ring buffers (sliding window) stay correct without rotation.
@@ -14,7 +20,8 @@ given, layer slice by layer slice, and return it: a serve pool at full
 width holds hundreds of megabytes per layer, and a copy per tick would
 move more bytes than the attention reads. Prefill's self-attention goes
 through the ``flash_attention`` kernel, the int8 decode's attention
-through ``quant_decode_attention`` (``ModelCtx.attn`` picks the path).
+through ``quant_decode_attention`` and the mamba1 prefill's scan through
+``mamba_scan`` (``ModelCtx.attn`` picks the path).
 """
 from __future__ import annotations
 
@@ -28,9 +35,10 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.quant_decode import (quant_decode_attention,
                                               quantize_kv)
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.model import (ModelCtx, check_family, embed_tokens,
-                                      head_logits, layer, mlp_block,
-                                      out_proj, qkv, rmsnorm)
+                                      head_logits, layer, mixer_segments,
+                                      mlp_block, out_proj, qkv, rmsnorm)
 from repro_torch.models.params import TensorSpec, torch_dtype
 
 
@@ -42,19 +50,48 @@ def cache_spec(cfg: ArchConfig, batch: int, max_len: int,
                ) -> Tuple[Dict[str, TensorSpec], Dict[str, Any]]:
     """(TensorSpec tree, logical-axes tree) of the cache. ``quant=True``:
     int8 K/V with per-(token, head) f32 scales, half the bytes of a bf16
-    cache."""
+    cache (the dense families; the ssm and hybrid caches ignore it, as the
+    reference's do)."""
     check_family(cfg)
     dtype = torch_dtype(dtype)
+    L = cfg.n_layers
+    hd = cfg.resolved_head_dim if cfg.n_heads else 0
     w = min(window or max_len, max_len)
-    kvs = (cfg.n_layers, batch, w, cfg.n_kv_heads, cfg.resolved_head_dim)
-    kv_dtype = torch.int8 if quant else dtype
     kv_ax = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
-    spec = {"k": TensorSpec(kvs, kv_dtype), "v": TensorSpec(kvs, kv_dtype)}
-    axes = {"k": kv_ax, "v": kv_ax}
-    if quant:
-        spec["k_scale"] = TensorSpec(kvs[:-1], torch.float32)
-        spec["v_scale"] = TensorSpec(kvs[:-1], torch.float32)
-        axes["k_scale"] = axes["v_scale"] = kv_ax[:-1]
+    spec: Dict[str, TensorSpec] = {}
+    axes: Dict[str, Any] = {}
+    fam = cfg.family
+    if fam in ("dense", "vlm"):
+        kvs = (L, batch, w, cfg.n_kv_heads, hd)
+        kv_dtype = torch.int8 if quant else dtype
+        spec["k"], spec["v"] = TensorSpec(kvs, kv_dtype), TensorSpec(
+            kvs, kv_dtype)
+        axes["k"] = axes["v"] = kv_ax
+        if quant:
+            spec["k_scale"] = TensorSpec(kvs[:-1], torch.float32)
+            spec["v_scale"] = TensorSpec(kvs[:-1], torch.float32)
+            axes["k_scale"] = axes["v_scale"] = kv_ax[:-1]
+    if fam in ("ssm", "hybrid"):
+        s = cfg.ssm
+        di = s.expand * cfg.d_model
+        if s.version == 1:
+            spec["h"] = TensorSpec((L, batch, di, s.state_dim), torch.float32)
+            axes["h"] = ("layers", "batch", "ssm_inner", "ssm_state")
+            conv_ch = di
+        else:
+            nh = di // s.head_dim
+            spec["h"] = TensorSpec((L, batch, nh, s.head_dim, s.state_dim),
+                                   torch.float32)
+            axes["h"] = ("layers", "batch", "ssm_inner", None, "ssm_state")
+            conv_ch = di + 2 * s.state_dim
+        spec["conv"] = TensorSpec((L, batch, s.conv_width - 1, conv_ch),
+                                  dtype)
+        axes["conv"] = ("layers", "batch", None, "ssm_inner")
+    if fam == "hybrid":
+        nseg = cfg.n_layers // cfg.shared_attn_every
+        kvs = (max(nseg, 1), batch, w, cfg.n_kv_heads, hd)
+        spec["k"], spec["v"] = TensorSpec(kvs, dtype), TensorSpec(kvs, dtype)
+        axes["k"] = axes["v"] = kv_ax
     return spec, axes
 
 
@@ -144,11 +181,14 @@ def _fill_ring(k_seq: torch.Tensor, w: int, window) -> torch.Tensor:
     return buf
 
 
-def prefill_attention(q, k, v, ctx: ModelCtx) -> torch.Tensor:
+def prefill_attention(q, k, v, ctx: ModelCtx,
+                      flash_past: Optional[int]) -> torch.Tensor:
     """Causal self-attention of the prompt. q: [B,S,H,Dh]; k,v: [B,S,KV,Dh];
-    the kernel sees [B,heads,S,Dh] views and answers in q's layout."""
+    the kernel sees [B,heads,S,Dh] views and answers in q's layout. The
+    reference path takes ``attend_flash`` past ``flash_past`` keys (None:
+    never), ``attend_full`` below."""
     if ctx.attn == "reference":
-        if ctx.kind == "prefill" and q.shape[1] > 4096:
+        if flash_past is not None and k.shape[1] > flash_past:
             return attn_lib.attend_flash(q, k, v, causal=True,
                                          window=ctx.window,
                                          chunk=ctx.attn_chunk)
@@ -168,20 +208,46 @@ def prefill(cfg: ArchConfig, params, batch, cache, ctx: ModelCtx):
     check_family(cfg)
     xp, yp = params["x"], params["y"]
     tokens = batch["tokens"]
-    pos = torch.arange(tokens.shape[1], device=tokens.device)
     h = embed_tokens(cfg, xp, tokens, batch.get("prefix_embeds"))
-    w = cache["k"].shape[2]
-    tables = attn_lib.rope_tables(pos, cfg.resolved_head_dim, cfg.rope_theta)
-    for i in range(cfg.n_layers):
-        lp = layer(xp["layers"], i)
-        hn = rmsnorm(h, lp["ln_attn"], cfg.norm_eps)
-        q, k, v = qkv(cfg, lp, hn)
+    pos = torch.arange(tokens.shape[1], device=tokens.device)
+    w = cache["k"].shape[2] if "k" in cache else 0
+    tables = (attn_lib.rope_tables(pos, cfg.resolved_head_dim,
+                                   cfg.rope_theta) if w else None)
+
+    def attention(p, h, flash_past):
+        """The attention block of the prompt: (h', (K, V) as the cache's
+        ring buffers)."""
+        hn = rmsnorm(h, p["ln_attn"], cfg.norm_eps)
+        q, k, v = qkv(cfg, p, hn)
         q = attn_lib.apply_rope(q, *tables)
         k = attn_lib.apply_rope(k, *tables)
-        o = prefill_attention(q, k, v, ctx)
-        h = h + out_proj(o, lp["wo"])
-        cache["k"][i].copy_(_fill_ring(k, w, ctx.window))
-        cache["v"][i].copy_(_fill_ring(v, w, ctx.window))
+        o = prefill_attention(q, k, v, ctx, flash_past)
+        return h + out_proj(o, p["wo"]), (_fill_ring(k, w, ctx.window),
+                                          _fill_ring(v, w, ctx.window))
+
+    if cfg.family in ("ssm", "hybrid"):
+        for seg, idx in mixer_segments(cfg):
+            for i in idx:
+                lp = layer(xp["layers"], i)
+                hn = rmsnorm(h, lp["ln"], cfg.norm_eps)
+                y, (hst, conv) = ssm_lib.mixer_seq(cfg, lp, hn,
+                                                   ctx.ssm_chunk, ctx.attn)
+                h = h + y
+                cache["h"][i].copy_(hst)
+                cache["conv"][i].copy_(conv)
+            if seg is not None:
+                # the shared block's reference path switches to the chunked
+                # attention past attn_chunk keys, not 4096 as the dense one
+                h, (k, v) = attention(xp["shared"], h, ctx.attn_chunk)
+                cache["k"][seg].copy_(k)
+                cache["v"][seg].copy_(v)
+                h = mlp_block(cfg, xp["shared"], h)
+        return head_logits(cfg, yp, h[:, -1:]), cache
+    for i in range(cfg.n_layers):
+        lp = layer(xp["layers"], i)
+        h, (k, v) = attention(lp, h, 4096 if ctx.kind == "prefill" else None)
+        cache["k"][i].copy_(k)
+        cache["v"][i].copy_(v)
         h = mlp_block(cfg, lp, h)
     return head_logits(cfg, yp, h[:, -1:]), cache
 
@@ -191,12 +257,32 @@ def prefill(cfg: ArchConfig, params, batch, cache, ctx: ModelCtx):
 def decode_step(cfg: ArchConfig, params, cache, token, pos, ctx: ModelCtx):
     """token: [B,1] integer; pos: tokens already cached, a scalar (every
     row at the same position) or a ``[B]`` tensor (continuous batching).
-    Writes the token's K/V into ``cache`` in place; returns (logits
-    [B,1,V], cache)."""
+    Writes the token's K/V (or SSM state) into ``cache`` in place; returns
+    (logits [B,1,V], cache)."""
     check_family(cfg)
     xp, yp = params["x"], params["y"]
-    pos = torch.as_tensor(pos, device=token.device)
     h = xp["embed"][token]
+    pos = torch.as_tensor(pos, device=token.device)
+    if cfg.family in ("ssm", "hybrid"):
+        step = (_Step(cfg, pos, token.shape[0], cache["k"].shape[2],
+                      ctx.window) if "k" in cache else None)
+        for seg, idx in mixer_segments(cfg):
+            for i in idx:
+                lp = layer(xp["layers"], i)
+                hn = rmsnorm(h, lp["ln"], cfg.norm_eps)
+                y, (hst, conv) = ssm_lib.mixer_decode(cfg, lp, hn,
+                                                      cache["h"][i],
+                                                      cache["conv"][i])
+                h = h + y
+                cache["h"][i].copy_(hst)
+                cache["conv"][i].copy_(conv)
+            if seg is not None:
+                # the shared block decodes against its bf16 cache through
+                # the plain attend_decode, as in the reference
+                h = _attn_decode_block(cfg, xp["shared"], h, cache["k"][seg],
+                                       cache["v"][seg], step)
+                h = mlp_block(cfg, xp["shared"], h)
+        return head_logits(cfg, yp, h), cache
     quant = "k_scale" in cache
     step = _Step(cfg, pos, token.shape[0], cache["k"].shape[2], ctx.window)
     for i in range(cfg.n_layers):

@@ -1,13 +1,18 @@
-"""The dense transformer of the serve path (the dense and vlm families,
-which share one branch in the JAX package's ``src/repro/models/model.py``).
+"""The unified model of the serve path (``src/repro/models/model.py``) for
+the families ported so far:
+  dense/vlm : GQA attention + gated MLP (optional qkv bias / window /
+              prefix fusion)
+  ssm       : mamba1 mixer only (``models/ssm.py``)
+  hybrid    : mamba2 mixers + ONE weight-tied shared attention block every
+              ``shared_attn_every`` layers
 
 Param tree layout (the bilevel split is structural, as in the reference):
-  {"x": {"embed", "layers"},            # UL variable (backbone)
-   "y": {"final_norm", "head"}}         # LL variable (head)
+  {"x": {"embed", "layers", ["shared"]},  # UL variable (backbone)
+   "y": {"final_norm", "head"}}           # LL variable (head)
 Every leaf of ``x["layers"]`` is stacked over the layers on its first axis,
 and the forward walks the layers with a Python loop over views of them.
-The moe, ssm, hybrid and encdec families raise ``NotImplementedError``
-naming the slice that brings them.
+The moe and encdec families raise ``NotImplementedError`` naming the slice
+that brings them.
 """
 from __future__ import annotations
 
@@ -19,21 +24,19 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.params import ParamSpec
 
-DENSE_FAMILIES = ("dense", "vlm")
+PORTED_FAMILIES = ("dense", "vlm", "ssm", "hybrid")
 LATER_SLICE = {
     "moe": "the MoE slice (models/moe.py)",
-    "ssm": "the SSM serving slice (models/ssm.py, kernel 6 mamba_scan)",
-    "hybrid": "the SSM serving slice (models/ssm.py mamba2 + shared "
-              "attention)",
     "encdec": "the LM-training slice (encoder and cross-attention)",
 }
 
 
 def check_family(cfg: ArchConfig) -> None:
     """Raise unless ``cfg`` is of a family the port runs so far."""
-    if cfg.family in DENSE_FAMILIES:
+    if cfg.family in PORTED_FAMILIES:
         return
     if cfg.family in LATER_SLICE:
         raise NotImplementedError(
@@ -46,17 +49,20 @@ def check_family(cfg: ArchConfig) -> None:
 class ModelCtx:
     """Per-call options (the reference's, without sharding rules).
 
-    ``attn`` picks the serve path's attention, prefill and int8 decode
-    together: "kernel" the ``flash_attention`` and ``quant_decode_attention``
-    wrappers (the CUDA kernels on CUDA tensors, their plain versions on the
-    CPU), "plain" the plain versions on any device, "reference" the
-    reference's own paths (``attend_full``, probabilities rounded to the
-    model dtype before the PV product, ``attend_flash`` past 4096 prompt
-    tokens; the int8 cache dequantized to the model dtype, then
-    ``attend_decode``)."""
+    ``attn`` picks the serve path's kernels, prefill and decode together:
+    "kernel" the ``flash_attention``, ``quant_decode_attention`` and
+    ``mamba_scan`` wrappers (the CUDA kernels on CUDA tensors, their plain
+    versions on the CPU), "plain" the plain versions on any device,
+    "reference" the reference's own paths (``attend_full``, probabilities
+    rounded to the model dtype before the PV product, ``attend_flash`` past
+    4096 prompt tokens, or past ``attn_chunk`` in the hybrid's shared
+    block; the int8 cache dequantized to the model dtype, then
+    ``attend_decode``; the mamba1 prefill's chunked associative scan of
+    ``ssm_chunk`` steps)."""
     window: Optional[int] = None      # sliding-window attention
     kind: str = "train"               # train | prefill | decode
     attn_chunk: int = 1024
+    ssm_chunk: int = 256
     attn: str = "kernel"
 
 
@@ -110,8 +116,14 @@ def _mlp_specs(cfg: ArchConfig, L: int, d_ff: int) -> Dict[str, ParamSpec]:
 def model_specs(cfg: ArchConfig) -> Dict[str, Any]:
     check_family(cfg)
     L = cfg.n_layers
-    x = {"embed": ParamSpec((cfg.vocab, cfg.d_model), ("vocab_in", "embed")),
-         "layers": {**_attn_specs(cfg, L), **_mlp_specs(cfg, L, cfg.d_ff)}}
+    x = {"embed": ParamSpec((cfg.vocab, cfg.d_model), ("vocab_in", "embed"))}
+    if cfg.family == "ssm":
+        x["layers"] = ssm_lib.mamba1_specs(cfg, L)
+    elif cfg.family == "hybrid":
+        x["layers"] = ssm_lib.mamba2_specs(cfg, L)
+        x["shared"] = {**_attn_specs(cfg, 0), **_mlp_specs(cfg, 0, cfg.d_ff)}
+    else:
+        x["layers"] = {**_attn_specs(cfg, L), **_mlp_specs(cfg, L, cfg.d_ff)}
     y = {"final_norm": ParamSpec((cfg.d_model,), ("embed",), init="ones",
                                  dtype="float32"),
          "head": ParamSpec((cfg.d_model, cfg.vocab), ("embed", "vocab"))}
@@ -192,17 +204,42 @@ def embed_tokens(cfg: ArchConfig, xp, tokens: torch.Tensor,
 def features(cfg: ArchConfig, xp, batch: Dict[str, torch.Tensor],
              ctx: ModelCtx) -> torch.Tensor:
     """Backbone features [B,S,d] (everything but the final norm and the LM
-    head), through the plain attention paths: the training forward keeps
-    them until the flash kernel has a backward."""
+    head), through the reference's paths (``attend_full``/``attend_flash``,
+    the chunked scan): the training forward keeps them until the kernels
+    have a backward."""
     check_family(cfg)
     tokens = batch["tokens"]
     h = embed_tokens(cfg, xp, tokens, batch.get("prefix_embeds"))
     pos = torch.arange(tokens.shape[1], device=tokens.device)
+    if cfg.family in ("ssm", "hybrid"):
+        for seg, idx in mixer_segments(cfg):
+            for i in idx:
+                lp = layer(xp["layers"], i)
+                hn = rmsnorm(h, lp["ln"], cfg.norm_eps)
+                h = h + ssm_lib.mixer_seq(cfg, lp, hn, ctx.ssm_chunk)[0]
+            if seg is not None:
+                h = _attn_block(cfg, xp["shared"], h, ctx, pos=pos)
+                h = mlp_block(cfg, xp["shared"], h)
+        return h
     for i in range(cfg.n_layers):
         lp = layer(xp["layers"], i)
         h = _attn_block(cfg, lp, h, ctx, pos=pos)
         h = mlp_block(cfg, lp, h)
     return h
+
+
+def mixer_segments(cfg: ArchConfig):
+    """The ssm and hybrid families' layer order: ``(segment, layer
+    indices)`` for each segment of ``shared_attn_every`` mamba2 layers,
+    each followed by the shared block (zamba2), then ``(None, rest)`` for
+    the layers with no shared block after them (every layer of an ssm
+    model; zamba2's tail)."""
+    every = cfg.shared_attn_every if cfg.family == "hybrid" else 0
+    nseg = cfg.n_layers // every if every else 0
+    out = [(s, range(s * every, (s + 1) * every)) for s in range(nseg)]
+    if cfg.n_layers > nseg * every:
+        out.append((None, range(nseg * every, cfg.n_layers)))
+    return out
 
 
 def head_logits(cfg: ArchConfig, yp, feats: torch.Tensor) -> torch.Tensor:

@@ -10,12 +10,15 @@ request's tokens are the same whether it shared the pool or ran alone.
 
 ``kv_quant=True`` switches the pool to the int8 layout: prefill stays full
 precision, the row is quantized per (token, head) on its way into the
-pool, and decode attends over it. ``kv_kernel`` picks the attention of
+pool, and decode attends over it. It needs an attention KV cache: the ssm
+family keeps SSM state and the hybrid family its bf16 shared-block cache,
+so both refuse it, as the reference does. ``kv_kernel`` picks the attention of
 prefill and decode: "auto" the ``flash_attention`` and
 ``quant_decode_attention`` kernels on a CUDA device and their plain
 versions on the CPU, "kernel" the kernels (refused on the CPU), "xla" the
 reference's paths (``attend_full``; the int8 cache dequantized to the
-model dtype, then ``attend_decode``).
+model dtype, then ``attend_decode``; the chunked associative scan). On the
+ssm family "auto" prefills through the ``mamba_scan`` kernel.
 """
 from __future__ import annotations
 
@@ -35,6 +38,9 @@ from repro_torch.kernels.quant_decode import quantize_kv
 from repro_torch.models.decode import zeros
 from repro_torch.models.model import check_family
 
+# families with an attention KV cache (the reference's list; moe and encdec
+# are not ported yet)
+QUANT_FAMILIES = ("dense", "vlm", "moe", "encdec")
 
 @dataclasses.dataclass
 class Request:
@@ -91,6 +97,12 @@ class Engine:
             raise ValueError(f"slots must be >= 1, got {slots}")
         check_kv_kernel(kv_kernel)
         check_family(cfg)
+        if kv_quant and cfg.family not in QUANT_FAMILIES:
+            raise ValueError(
+                f"kv_quant=True needs an attention KV cache; family "
+                f"{cfg.family!r} keeps "
+                f"{'SSM state' if cfg.family == 'ssm' else 'hybrid state'} "
+                f"(supported: {', '.join(QUANT_FAMILIES)})")
         if telemetry is not None:
             raise NotImplementedError("telemetry comes with the port's obs/ "
                                       "slice; pass telemetry=None")
@@ -152,15 +164,16 @@ class Engine:
 
     def _scatter_row(self, row: Dict[str, torch.Tensor], slot: int) -> None:
         """Write a prefilled B=1 cache row into pool slot ``slot``: every
-        leaf carries the batch at axis 1. With ``kv_quant`` the row's K/V
-        are quantized per (token, head) on the way in."""
-        for key in ("k", "v"):
-            if self.kv_quant:
-                levels, scale = quantize_kv(row[key][:, 0])
+        leaf carries the batch at axis 1, so one loop covers every family.
+        With ``kv_quant`` the row's K/V are quantized per (token, head) on
+        the way in."""
+        for key, val in row.items():
+            if self.kv_quant and key in ("k", "v"):
+                levels, scale = quantize_kv(val[:, 0])
                 self._pool[key][:, slot] = levels
                 self._pool[key + "_scale"][:, slot] = scale
             else:
-                self._pool[key][:, slot] = row[key][:, 0]
+                self._pool[key][:, slot] = val[:, 0]
 
     @staticmethod
     def _argmax(logits: torch.Tensor) -> torch.Tensor:

@@ -186,6 +186,7 @@ def _attn_close(got, want, dtype):
 @pytest.mark.parametrize("b,h,kv,s,d,causal,window,dtype,strided", [
     (1, 8, 2, 256, 128, True, None, torch.bfloat16, True),    # GQA
     (1, 4, 4, 200, 64, True, None, torch.float32, True),      # MHA, ragged
+    (1, 32, 32, 300, 64, True, None, torch.bfloat16, True),   # hybrid's block
     (2, 8, 1, 130, 128, True, None, torch.bfloat16, False),   # MQA
     (1, 4, 2, 512, 64, True, 128, torch.float32, True),       # window
     (1, 4, 2, 100, 64, False, None, torch.float32, False),    # not causal
@@ -307,4 +308,100 @@ def test_engine_on_the_card_launches_both_kernels(cuda):
             == cfg.n_layers * len(eng.timings["decode"]))
     want = Engine(cfg, params, slots=3, max_len=96, kv_quant=True,
                   kv_kernel="xla").run(reqs)
+    assert got == {c.rid: c.tokens for c in want}
+
+
+def _scan_inputs(g, cuda, b, s, di, n, dtype, strided):
+    """Inputs of the mamba1 scan as the model makes them: dt a softplus, A
+    = -(1..N) per channel, B and C column slices of a [B, S, dtr + 2N]
+    projection (``strided``) or contiguous."""
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device=cuda)
+    x = rand(b, s, di).to(dtype)
+    dt = torch.nn.functional.softplus(rand(b, s, di) - 1.0).to(dtype)
+    A = -torch.arange(1, n + 1, device=cuda, dtype=torch.float32).expand(
+        di, n).contiguous()
+    if strided:
+        proj = rand(b, s, 16 + 2 * n).to(dtype)
+        return x, dt, A, proj[..., 16:16 + n], proj[..., 16 + n:]
+    return x, dt, A, rand(b, s, n).to(dtype), rand(b, s, n).to(dtype)
+
+
+@pytest.mark.parametrize("b,s,di,n,dtype,strided", [
+    (1, 300, 1024, 16, torch.float32, True),   # B and C as column slices
+    (2, 64, 1004, 16, torch.float32, False),   # ragged Di (1004 % 16)
+    (1, 1, 256, 16, torch.float32, True),      # S 1
+    (2, 130, 512, 16, torch.bfloat16, True),   # bf16, ragged tile of steps
+    (1, 70, 256, 8, torch.float32, False),     # N 8: 8 lanes a channel
+    (1, 65, 96, 12, torch.float32, True),      # N 12: idle lanes past N
+])
+def test_mamba_scan_matches_plain_version(cuda, b, s, di, n, dtype, strided):
+    """y and the f32 last state, each element within tol (1 + |plain|):
+    1e-5 in f32 (the reference's own, tests/test_kernels.py:236), 2e-2 in
+    bf16 (y's rounding)."""
+    from repro_torch.kernels import mamba_scan as mk
+    g = torch.Generator(device=cuda)
+    g.manual_seed(s * di + n)
+    args = _scan_inputs(g, cuda, b, s, di, n, dtype, strided)
+    before = mk.launches["mamba_scan"]
+    y, h = mk.mamba_scan(*args)
+    assert mk.launches["mamba_scan"] == before + 1
+    y_ref, h_ref = ref.mamba_scan_ref(*args)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and h.dtype == torch.float32
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for got, want in ((y, y_ref), (h, h_ref)):
+        assert got.shape == want.shape
+        assert ((got.float() - want.float()).abs()
+                <= tol * (1 + want.float().abs())).all()
+
+
+def test_mamba_scan_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels import mamba_scan as mk
+    x = torch.zeros(1, 4, 32, device=cuda)
+    A = torch.zeros(32, 16, device=cuda)
+    bc = torch.zeros(1, 4, 16, device=cuda)
+    with pytest.raises(ValueError, match="dt must have shape"):
+        mk.mamba_scan(x, x[:, :3], A, bc, bc)
+    with pytest.raises(TypeError, match="x must be"):
+        mk.mamba_scan(x.half(), x, A, bc, bc)
+    with pytest.raises(ValueError, match="state dimension"):
+        big = torch.zeros(1, 4, 17, device=cuda)
+        mk.mamba_scan(x, x, torch.zeros(32, 17, device=cuda), big, big)
+    with pytest.raises(ValueError, match="empty scan"):
+        mk.mamba_scan(x[:, :0], x[:, :0], A, bc[:, :0], bc[:, :0])
+
+
+@pytest.mark.parametrize("arch_id", ["falcon-mamba-7b", "zamba2-1.2b"])
+def test_engine_on_the_card_serves_ssm_and_hybrid(cuda, arch_id):
+    """A reduced model served on the card: falcon-mamba-7b's prefill
+    launches mamba_scan once a layer, zamba2's shared block flash_attention
+    once a segment, and the tokens equal the reference paths' ("xla", f32
+    weights)."""
+    from repro_torch import device as devlib
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels import flash_attention as fkern
+    from repro_torch.kernels import mamba_scan as mk
+    from repro_torch.models import init_params, model_specs
+    from repro_torch.serve import Engine, LoadSpec, generate_requests
+    kw = {"n_layers": 5} if arch_id == "zamba2-1.2b" else {}
+    cfg = reduced(get_arch(arch_id), dtype="float32", **kw)
+    params = init_params(model_specs(cfg), devlib.generator(cuda, 0),
+                         "float32")
+    reqs = generate_requests(LoadSpec(n_requests=5, prompt_lens=(4, 70),
+                                      mean_new_tokens=4.0, max_new_cap=6,
+                                      seed=3), cfg.vocab)
+    fkern.reset_launches()
+    mk.reset_launches()
+    got = {c.rid: c.tokens for c in Engine(cfg, params, slots=3,
+                                           max_len=96).run(reqs)}
+    if arch_id == "falcon-mamba-7b":
+        assert mk.launches["mamba_scan"] == cfg.n_layers * len(reqs)
+        assert fkern.launches["flash_attention"] == 0
+    else:
+        nseg = cfg.n_layers // cfg.shared_attn_every
+        assert fkern.launches["flash_attention"] == nseg * len(reqs)
+        assert mk.launches["mamba_scan"] == 0
+    want = Engine(cfg, params, slots=3, max_len=96, kv_kernel="xla").run(
+        reqs)
     assert got == {c.rid: c.tokens for c in want}
