@@ -8,7 +8,9 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
 
 1. the card's name and power limit (``nvidia-smi``);
 2. builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-   into ``build/``, one ``nvcc`` per source, all started together;
+   into ``build/``, one ``nvcc`` per source, all started together, and
+   prints each build's seconds; counts the ``HGMMA`` (wgmma) instructions
+   of the bf16 flash library with ``cuobjdump -sass`` and fails on none;
 3. kernel phase: holds each kernel against its plain PyTorch version on the
    card: the update kernels at the main path's shape [8, 1_066_240], at
    M = 1, at a ragged n, at a misaligned view and at n < 4 (within 1e-6);
@@ -16,8 +18,10 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
    [8, 2_173_440] in its 10 leaf segments, at M = 1, at 4 bits, at a ragged
    n, at two misaligned views (one with n % 4 == 0) and at n < 4 (bit for
    bit). Times kernel and
-   plain version with CUDA events (median of 30 launches after warm-up)
-   beside the bound (bytes moved over 3.35 TB/s);
+   plain version with CUDA events (median of 30 launches after warm-up,
+   each behind a spin kernel that keeps the card busy while the host
+   issues it, so a time is the card's and not the host's) beside the bound
+   (bytes moved over 3.35 TB/s);
 4. main path: ``FedDriver`` (AdaFBiO, ``fused="auto"``) on hyper-
    representation at MNIST width (in 784, hidden 1024, rep 256, 10 classes,
    batch 256, 8 clients: x is 1,066,240 f32 per client), eager and scan
@@ -43,9 +47,11 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
    (qwen2.5-14b: 40 heads over 8, head_dim 128, S 1536, bf16, causal), MHA
    at a ragged S 1000, MQA at granite-20b's 48 heads over 1, a sliding
    window (S 4096, window 1024), zamba2-1.2b's shared block (32 heads,
-   head_dim 64, S 1536, bf16) and an f32 case; times kernel, plain version
-   and ``F.scaled_dot_product_attention`` (the library yardstick, not on
-   the path) beside the bound;
+   head_dim 64, S 1536, bf16) and an f32 case (the SIMT kernel; bf16 runs
+   on the tensor cores); times kernel, plain version and
+   ``F.scaled_dot_product_attention`` (the library yardstick, not on the
+   path) beside the bound and the time before the redesign
+   (``BEFORE_MS``);
 10. quant-decode phase: the int8 decode kernel against its plain version
    on one layer's slice of the serve pool (B 8, H 40 over 8, W 2048,
    Dh 128), at per-row positions from 1 to 2048, MQA, a W that is not a
@@ -58,7 +64,8 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
    views of the [1, 1536, 288] projection), B 2 at S 1024, a ragged Di
    (8004), S 1 and bf16 inputs; times kernel and plain version beside the
    bound (the larger of bytes over 3.35 TB/s and the exponentials over the
-   special-function units' rate at the card's clock);
+   special-function units' rate at the card's clock) and the time before
+   the redesign;
 12. serve phase: qwen2.5-14b at full width (48 layers, bf16, 14.8 B params
    from a seeded generator) through ``Engine(slots=8, max_len=2048,
    kv_quant=True)`` replaying 16 requests of 256, 1024 and 1536 prompt
@@ -118,6 +125,35 @@ SERVE_WITNESS = 2.0            # bf16 serve checks, see serve_check
 # tests/test_kernels.py:236) and 2e-2 where they are bf16 (y's rounding)
 SCAN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 SFU_PER_CLOCK = 16             # exponentials per clock per SM (Hopper SFUs)
+QUEUE_FILL_CYCLES = 2_000_000  # the spin before a timed call, ~1 ms
+# flash_phase's cases: label, B, H, KV, S, head_dim, dtype, window
+FLASH_CASES = [("main", 1, 40, 8, 1536, 128, "bfloat16", None),
+               ("mha-ragged", 1, 20, 20, 1000, 128, "bfloat16", None),
+               ("mqa", 1, 48, 1, 1536, 128, "bfloat16", None),
+               ("window", 1, 40, 8, 4096, 128, "bfloat16", 1024),
+               # zamba2-1.2b's shared block at the longest prompt
+               ("hybrid", 1, 32, 32, 1536, 64, "bfloat16", None),
+               ("f32", 1, 8, 2, 512, 64, "float32", None)]
+# mamba_scan_phase's cases: label, B, S, Di, N, dtype
+SCAN_CASES = [("main", 1, 1536, 8192, 16, "float32"),
+              ("B=2", 2, 1024, 8192, 16, "float32"),
+              ("ragged-Di", 1, 1024, 8004, 16, "float32"),
+              ("S=1", 1, 1, 8192, 16, "float32"),
+              ("bf16", 1, 1536, 8192, 16, "bfloat16")]
+SCAN_TIMED = ("main", "bf16")
+SCAN_DT_RANK = 256             # falcon-mamba-7b's dt_rank, d_model / 16
+# The two redesigned kernels before their redesign (commit 078fb78: the
+# SIMT flash kernel, one lane a state in the scan), timed as time_ms times
+# this run's, by scripts/kernel_times.py in one machine call beside the
+# redesign (PERF.md section 6: H100 80GB HBM3, 700 W); printed beside this
+# run's times
+BEFORE_MS = {("flash_attention", "main"): 1.2261,
+             ("flash_attention", "mha-ragged"): 0.3866,
+             ("flash_attention", "mqa"): 1.4154,
+             ("flash_attention", "window"): 3.2199,
+             ("flash_attention", "hybrid"): 0.5937,
+             ("flash_attention", "f32"): 0.0692,
+             ("mamba_scan", "main"): 0.3846, ("mamba_scan", "bf16"): 0.3836}
 # f32 serve check, normwise (serve_check): on the H100 the kernel path
 # parted from the plain one by at most 2.7e-5 (a prefill's logits; 1.3e-5
 # over the ticks) and the control, one key of each row zeroed in every
@@ -143,12 +179,14 @@ SSM_CONTROL_TICKS = 2
 HYBRID_F32_RTOL = 1e-4
 MAIN_SHAPE = (8, 1_066_240)    # the main path's packed [M, n] x buffer
 MSG_ELEMENTS = 2_173_440       # one client's message at MNIST width
+# the source of each kernel the main paths launch: flash_attention's bf16
+# kernel (the serve paths'); its f32 inputs run csrc/flash_attention.cu
 SOURCES = {"storm_update": "src/repro_torch/kernels/csrc/storm_update.cu",
            "adafbio_update": "src/repro_torch/kernels/csrc/storm_update.cu",
            "quantize_stoch": "src/repro_torch/kernels/csrc/quantize.cu",
            "dequantize": "src/repro_torch/kernels/csrc/quantize.cu",
            "flash_attention":
-               "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
            "quant_decode_attention":
                "src/repro_torch/kernels/csrc/quant_decode.cu",
            "mamba_scan": "src/repro_torch/kernels/csrc/mamba_scan.cu"}
@@ -206,19 +244,33 @@ def gpu_line():
 
 
 def time_ms(torch, fn, reps=30, warmup=3):
-    """Median per-call device time of ``fn`` with CUDA events."""
+    """Median per-call device time of ``fn`` with CUDA events. A spin
+    kernel of QUEUE_FILL_CYCLES is queued before each timed call, so the
+    card is still busy while the host issues the call and the events see
+    its device work alone."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_FILL_CYCLES)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def hgmma_count(build, lib_path):
+    """The HGMMA (wgmma) instructions in a built library's SASS, read with
+    the toolkit's cuobjdump (``build`` is ``repro_torch.kernels._build``)."""
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    out = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                         capture_output=True, text=True, check=True,
+                         timeout=300)
+    return sum("HGMMA" in line for line in out.stdout.splitlines())
 
 
 def kernel_phase(torch, kern, ref):
@@ -765,6 +817,33 @@ def attn_error(torch, got, want, dtype):
     return diff.max().item(), worst
 
 
+def flash_inputs(torch, gen, b, h, kv, s, d, dtype):
+    """q [B, H, S, D], k and v [B, KV, S, D]: views of the prefill's
+    [B, S, heads, D] layout, drawn from ``gen`` on the card."""
+    def make(heads):
+        return torch.randn(b, s, heads, d, generator=gen, device="cuda",
+                           dtype=dtype).transpose(1, 2)
+    return make(h), make(kv), make(kv)
+
+
+def scan_inputs(torch, gen, b, s, di, n, dtype):
+    """x, dt, A, B, C as ``mamba1_seq`` makes them (dt a softplus, A =
+    -(1..N) per channel as A_log's init gives it, B and C column views of
+    the [B, S, dt_rank + 2N] projection), drawn from ``gen`` on the
+    card."""
+    import torch.nn.functional as F
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    x = rand(b, s, di).to(dtype)
+    dt = F.softplus(rand(b, s, di)).to(dtype)
+    A = -torch.arange(1, n + 1, dtype=torch.float32, device="cuda").expand(
+        di, n).contiguous()
+    proj = rand(b, s, SCAN_DT_RANK + 2 * n).to(dtype)
+    return (x, dt, A, proj[..., SCAN_DT_RANK:SCAN_DT_RANK + n],
+            proj[..., SCAN_DT_RANK + n:])
+
+
 def flash_phase(torch, fkern, ref):
     """flash_attention against its plain version at every listed shape, in
     the prefill's [B, S, H, D] layout viewed as [B, H, S, D]; returns the
@@ -773,20 +852,10 @@ def flash_phase(torch, fkern, ref):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
-    bf16, f32 = torch.bfloat16, torch.float32
-    cases = [("main", 1, 40, 8, 1536, 128, bf16, None),
-             ("mha-ragged", 1, 20, 20, 1000, 128, bf16, None),
-             ("mqa", 1, 48, 1, 1536, 128, bf16, None),
-             ("window", 1, 40, 8, 4096, 128, bf16, 1024),
-             # zamba2-1.2b's shared block at the longest prompt
-             ("hybrid", 1, 32, 32, 1536, 64, bf16, None),
-             ("f32", 1, 8, 2, 512, 64, f32, None)]
     results = {}
-    for label, b, h, kv, s, d, dtype, window in cases:
-        def make(heads):
-            return torch.randn(b, s, heads, d, generator=gen, device=dev,
-                               dtype=dtype).transpose(1, 2)
-        q, k, v = make(h), make(kv), make(kv)
+    for label, b, h, kv, s, d, dtype, window in FLASH_CASES:
+        dtype = getattr(torch, dtype)
+        q, k, v = flash_inputs(torch, gen, b, h, kv, s, d, dtype)
         fast = lambda: fkern.flash_attention(q, k, v, causal=True,  # noqa
                                              window=window)
         plain = lambda: ref.flash_attention_ref(q, k, v, causal=True,  # noqa
@@ -803,7 +872,7 @@ def flash_phase(torch, fkern, ref):
         err, worst = attn_error(torch, fast(), plain(), dtype)
         flops = 4 * b * h * d * attention_pairs(s, s, True, window)
         nbytes = (2 * b * s * h * d + 2 * b * s * kv * d) * q.element_size()
-        peak = BF16_FLOPS if dtype == bf16 else F32_FLOPS
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
         bound = max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3
         row = {"max_abs_err": err, "worst": worst, "ms": time_ms(torch, fast),
                "plain_ms": time_ms(torch, plain),
@@ -814,12 +883,15 @@ def flash_phase(torch, fkern, ref):
         if label == "main":
             results["flash_attention"] = row
         print(f"kernel flash_attention {label:10s} B {b} H {h} KV {kv} S {s} "
-              f"D {d} {str(dtype)[6:]} window {window}: max_abs_err "
-              f"{err:.3e}, worst element at {worst:.3f} of its limit; "
-              f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-              f"sdpa {row['library_ms']:.4f} ms, bound {bound:.4f} ms "
-              f"({row['bound_by']}: {flops:.4g} FLOP, {nbytes} bytes)"
-              + ("" if worst <= 1 else "  FAILED"), flush=True)
+              f"D {d} {str(dtype)[6:]} window {window} ("
+              f"{fkern.source_for(dtype)}): max_abs_err {err:.3e}, worst "
+              f"element at {worst:.3f} of its limit; kernel {row['ms']:.4f} "
+              f"ms (before the redesign: "
+              f"{BEFORE_MS[('flash_attention', label)]} ms), plain "
+              f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, "
+              f"bound {bound:.4f} ms ({row['bound_by']}: {flops:.4g} FLOP, "
+              f"{nbytes} bytes)" + ("" if worst <= 1 else "  FAILED"),
+              flush=True)
         if not worst <= 1:
             raise AssertionError(f"flash_attention disagrees with its plain "
                                  f"version at {label}")
@@ -1115,33 +1187,18 @@ def sm_clock_hz():
 
 def mamba_scan_phase(torch, mk, ref):
     """mamba_scan against its plain version, y and h_last element by
-    element, with the inputs as ``mamba1_seq`` makes them (dt a softplus,
-    A = -(1..N) per channel as A_log's init gives it, B and C column views
-    of the [B, S, dt_rank + 2N] projection); returns the numbers of the
-    full-width prefill shape."""
-    import torch.nn.functional as F
+    element, with the inputs as ``mamba1_seq`` makes them (scan_inputs);
+    returns the numbers of the full-width prefill shape."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
-    f32, bf16 = torch.float32, torch.bfloat16
-    dtr = 256                  # falcon-mamba-7b's dt_rank, d_model / 16
-    cases = [("main", 1, 1536, 8192, 16, f32),
-             ("B=2", 2, 1024, 8192, 16, f32),
-             ("ragged-Di", 1, 1024, 8004, 16, f32),
-             ("S=1", 1, 1, 8192, 16, f32),
-             ("bf16", 1, 1536, 8192, 16, bf16)]
     sfu_per_s = (SFU_PER_CLOCK * sm_clock_hz()
                  * torch.cuda.get_device_properties(dev).multi_processor_count)
     results = {}
-    for label, b, s, di, n, dtype in cases:
-        def rand(*shape):
-            return torch.randn(*shape, generator=gen, device=dev)
-        x = rand(b, s, di).to(dtype)
-        dt = F.softplus(rand(b, s, di)).to(dtype)
-        A = -torch.arange(1, n + 1, dtype=f32, device=dev).expand(
-            di, n).contiguous()
-        proj = rand(b, s, dtr + 2 * n).to(dtype)
-        args = (x, dt, A, proj[..., dtr:dtr + n], proj[..., dtr + n:])
+    for label, b, s, di, n, dtype in SCAN_CASES:
+        dtype = getattr(torch, dtype)
+        args = scan_inputs(torch, gen, b, s, di, n, dtype)
+        x = args[0]
         fast = lambda: mk.mamba_scan(*args)  # noqa: E731
         plain = lambda: ref.mamba_scan_ref(*args)  # noqa: E731
         (y, h), (y_ref, h_ref) = fast(), plain()
@@ -1167,7 +1224,7 @@ def mamba_scan_phase(torch, mk, ref):
                "bound_ms": bound, "library_ms": None,
                "bound_by": "bytes" if t_bytes >= max(t_exp, t_flops)
                else "operations", "bytes": nbytes, "exps": exps}
-        timed = label in ("main", "bf16")
+        timed = label in SCAN_TIMED
         if timed:
             row.update(ms=time_ms(torch, fast), plain_ms=time_ms(
                 torch, plain))
@@ -1177,11 +1234,13 @@ def mamba_scan_phase(torch, mk, ref):
               f"{str(dtype)[6:]}: max_abs_err y {errs[0]:.3e} h_last "
               f"{errs[1]:.3e}, worst element at {worst:.3f} of its limit "
               f"(tol {tol})"
-              + (f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}"
-                 f" ms, library none (no single PyTorch call runs the "
-                 f"selective scan), bound {bound:.4f} ms ({row['bound_by']}"
-                 f": {nbytes} bytes {t_bytes * 1e3:.4f} ms, {exps} "
-                 f"exponentials {t_exp * 1e3:.4f} ms, f32 operations "
+              + (f"; kernel {row['ms']:.4f} ms (before the redesign: "
+                 f"{BEFORE_MS[('mamba_scan', label)]} ms), plain "
+                 f"{row['plain_ms']:.4f} ms, library none (no single "
+                 f"PyTorch call runs the selective scan), bound "
+                 f"{bound:.4f} ms ({row['bound_by']}: {nbytes} bytes "
+                 f"{t_bytes * 1e3:.4f} ms, {exps} exponentials "
+                 f"{t_exp * 1e3:.4f} ms, f32 operations "
                  f"{t_flops * 1e3:.4f} ms)" if timed else "")
               + ("" if worst <= 1 else "  FAILED"), flush=True)
         if not worst <= 1:
@@ -1459,7 +1518,16 @@ def main() -> int:
 
     t0 = time.time()
     libs = _build.build_all()
-    print(f"built {sorted(libs)} in {time.time() - t0:.2f} s", flush=True)
+    nvcc_s = ", ".join(f"{n} {t:.2f} s" for n, t in
+                       sorted(_build.build_seconds.items()))
+    print(f"built {sorted(libs)} in {time.time() - t0:.2f} s (nvcc, one "
+          f"process a source, in parallel: {nvcc_s or 'none; all built'})",
+          flush=True)
+    hgmma = hgmma_count(_build, libs["flash_attention_sm90"])
+    print(f"flash_attention_sm90: {hgmma} HGMMA instructions in its SASS",
+          flush=True)
+    if hgmma == 0:
+        raise AssertionError("the bf16 flash kernel has no wgmma (HGMMA)")
 
     numbers, launches = adafbio_phases(torch, kern, qkern, ref, ops)
     free_device_memory(torch)

@@ -7,7 +7,7 @@ source rebuilds and an unchanged one loads the library already built. The
 builds go to ``build/kernels/`` at the root of the checkout. Nothing is
 built when a module is imported: :func:`load` builds at the first launch,
 :func:`build_all` builds every source at once, one ``nvcc`` process each,
-all started together.
+all started together; ``build_seconds`` keeps each build's wall time.
 """
 from __future__ import annotations
 
@@ -17,17 +17,20 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("storm_update", "quantize", "flash_attention", "quant_decode",
-           "mamba_scan")
+SOURCES = ("storm_update", "quantize", "flash_attention",
+           "flash_attention_sm90", "quant_decode", "mamba_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+build_seconds: Dict[str, float] = {}
 
 
 def build_dir() -> Path:
@@ -51,37 +54,31 @@ def library_path(name: str) -> Path:
     return build_dir() / f"lib{name}-{digest[:16]}.so"
 
 
-def _start(name: str):
-    """Start ``nvcc`` for one source unless its library exists; returns
-    ``(process or None, tmp path, final path)``."""
-    out = library_path(name)
-    if out.exists():
-        return None, None, out
+def _compile(name: str, out: Path) -> None:
+    """One ``nvcc`` run for ``csrc/<name>.cu``, into ``out``."""
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
-
-
-def _finish(name: str, proc, tmp: Path, out: Path) -> None:
-    if proc is None:
-        return
-    log, _ = proc.communicate()
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    build_seconds[name] = time.monotonic() - t0
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed on {name}.cu "
-                           f"(exit {proc.returncode}):\n{log}")
+                           f"(exit {proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, out)
 
 
 def build_all(names=SOURCES) -> Dict[str, Path]:
     """Compile every source that has no library yet, in parallel."""
-    started = {n: _start(n) for n in names}
-    for n, job in started.items():
-        _finish(n, *job)
-    return {n: job[2] for n, job in started.items()}
+    outs = {n: library_path(n) for n in names}
+    todo = [n for n in names if not outs[n].exists()]
+    if todo:
+        with ThreadPoolExecutor(len(todo)) as pool:
+            for job in [pool.submit(_compile, n, outs[n]) for n in todo]:
+                job.result()
+    return outs
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,19 +1,22 @@
-// Forward causal / sliding-window GQA attention (flash style), for Hopper
-// (sm_90a).
+// Forward causal / sliding-window GQA attention (flash style) in f32, for
+// Hopper (sm_90a).
 //
 // flash_attention_fwd replaces the TPU kernel flash_attention
-// (src/repro/kernels/flash_attention.py:63): o = softmax(q k^T / sqrt(D)
-// + mask) v with an online softmax in f32, q head h reading kv head
-// h / (H / KV), positions counted from 0 in q and k, the causal mask
-// kpos <= qpos and the window mask kpos > qpos - window. The output has q's
-// dtype (f32 or bf16).
+// (src/repro/kernels/flash_attention.py:63) for f32 inputs: o = softmax(q
+// k^T / sqrt(D) + mask) v with an online softmax in f32, q head h reading
+// kv head h / (H / KV), positions counted from 0 in q and k, the causal
+// mask kpos <= qpos and the window mask kpos > qpos - window. bf16 inputs
+// go to the tensor-core kernel of csrc/flash_attention_sm90.cu; f32 stays
+// here because the f32 serve and hybrid checks hold the kernel to 1e-6 of
+// its plain version per element, which products rounded to bf16 (or TF32)
+// on the tensor cores cannot meet. The wrapper dispatches by dtype.
 //
 // One block computes BQ = 64 query rows of one head against the key tiles
-// it needs, BK = 64 keys at a time: q, k and v tiles are widened to f32 in
-// shared memory (q scaled by 1/sqrt(D) as it is loaded), each of the 256
-// threads computes a 4x4 patch of the 64x64 score tile with f32 FMAs,
-// masks it, updates the running max and denominator of its four rows (the
-// 16 threads that share a row reduce with warp shuffles), writes the
+// it needs, BK = 64 keys at a time: q, k and v tiles are copied to shared
+// memory (q scaled by 1/sqrt(D) as it is loaded), each of the 256 threads
+// computes a 4x4 patch of the 64x64 score tile with f32 FMAs, masks it,
+// updates the running max and denominator of its four rows (the 16
+// threads that share a row reduce with warp shuffles), writes the
 // probabilities to shared memory and adds their product with the v tile to
 // its 4 x D/16 patch of the output, kept in registers. Tiles above the
 // diagonal (causal) and before the window's start are never loaded, as in
@@ -26,19 +29,15 @@
 // thread when every row start is 16-byte aligned, else one element at a
 // time.
 //
-// Bound: at the serve path's prefill (S 1536, 40 heads of 128) the work is
-// about 24 GFLOP against 38 MB moved, so the card's tensor-core rate bounds
-// it. This first kernel does its products with f32 FMAs on the CUDA cores
-// (no mma / wgmma yet), so it runs well below that bound: the design keeps
-// every intermediate (scores, probabilities, running statistics) out of
-// device memory, which is what the TPU kernel is for, and leaves the tensor
-// cores to a later version.
+// Bound: f32 FMAs on the CUDA cores (67 TFLOP/s) at the f32 checks' shapes
+// (for example B 1, 8 heads over 2, S 512, D 64: 0.004 ms); the kernel
+// reaches a few percent of it, since shared-memory loads pace its inner
+// loops. The f32 path is a correctness path, not the serve path's.
 //
 // Plain C interface, for ctypes: the function launches on the given stream
 // and returns cudaGetLastError() (0 on success). It never synchronises and
 // allocates nothing; the caller allocates the output.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -50,37 +49,27 @@ constexpr int BK = 64;
 constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T narrow(float x);
-template <> __device__ __forceinline__ float narrow<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 narrow(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 // Rows [row0, row0 + ROWS) of a [rows, D] matrix whose rows are `stride`
-// elements apart, widened to f32 and multiplied by `mul`, into shared
-// memory rows `ld` floats apart; rows at or past `n_rows` are zero.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const T* src,
+// elements apart, multiplied by `mul`, into shared memory rows `ld` floats
+// apart; rows at or past `n_rows` are zero.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src,
                                           int64_t stride, int row0,
                                           int n_rows, float mul, bool vec) {
   if (vec) {
-    constexpr int kPer = 16 / sizeof(T);   // elements per 16-byte load
+    constexpr int kPer = 4;                // floats per 16-byte load
     constexpr int kChunks = D / kPer;      // loads per row
     for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
       const int r = i / kChunks, c = (i % kChunks) * kPer;
       const int row = row0 + r;
       float* out = dst + r * ld + c;
       if (row < n_rows) {
-        uint4 raw = *reinterpret_cast<const uint4*>(src + row * stride + c);
-        const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-        for (int j = 0; j < kPer; ++j) out[j] = __fmul_rn(widen(e[j]), mul);
+        const float4 e =
+            *reinterpret_cast<const float4*>(src + row * stride + c);
+        out[0] = __fmul_rn(e.x, mul);
+        out[1] = __fmul_rn(e.y, mul);
+        out[2] = __fmul_rn(e.z, mul);
+        out[3] = __fmul_rn(e.w, mul);
       } else {
 #pragma unroll
         for (int j = 0; j < kPer; ++j) out[j] = 0.f;
@@ -91,7 +80,7 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const T* src,
       const int r = i / D, c = i % D;
       const int row = row0 + r;
       dst[r * ld + c] =
-          row < n_rows ? __fmul_rn(widen(src[row * stride + c]), mul) : 0.f;
+          row < n_rows ? __fmul_rn(src[row * stride + c], mul) : 0.f;
     }
   }
 }
@@ -100,13 +89,13 @@ struct Strides {  // element strides of a [B, heads, S, D] view
   int64_t b, h, s;
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, Strides qs,
-                     Strides ks, Strides vs, Strides os, int H, int KV,
-                     int Sq, int Sk, int causal, int window, float scale,
-                     int vec_q, int vec_kv) {
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     Strides qs, Strides ks, Strides vs, Strides os, int H,
+                     int KV, int Sq, int Sk, int causal, int window,
+                     float scale, int vec_q, int vec_kv) {
   constexpr int kCols = D / 16;   // output columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;                        // [BQ][D + 1]
@@ -117,11 +106,11 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + kvh * ks.h;
-  const T* vb = v + b * vs.b + kvh * vs.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + kvh * ks.h;
+  const float* vb = v + b * vs.b + kvh * vs.h;
 
-  load_rows<T, D, BQ>(Qs, D + 1, qb, qs.s, q0, Sq, scale, vec_q);
+  load_rows<D, BQ>(Qs, D + 1, qb, qs.s, q0, Sq, scale, vec_q);
 
   float acc[4][kCols], m[4], l[4];
 #pragma unroll
@@ -138,8 +127,8 @@ __global__ void __launch_bounds__(kThreads)
   const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
   for (int k0 = (k_begin / BK) * BK; k0 < k_end; k0 += BK) {
     __syncthreads();   // the previous tile's readers are done
-    load_rows<T, D, BK>(Ks, D + 1, kb, ks.s, k0, Sk, 1.f, vec_kv);
-    load_rows<T, D, BK>(Vs, D, vb, vs.s, k0, Sk, 1.f, vec_kv);
+    load_rows<D, BK>(Ks, D + 1, kb, ks.s, k0, Sk, 1.f, vec_kv);
+    load_rows<D, BK>(Vs, D, vb, vs.s, k0, Sk, 1.f, vec_kv);
     __syncthreads();
 
     float s[4][4];
@@ -214,7 +203,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  T* ob = o + b * os.b + h * os.h;
+  float* ob = o + b * os.b + h * os.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qp = q0 + ty + 16 * i;
@@ -222,7 +211,7 @@ __global__ void __launch_bounds__(kThreads)
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < kCols; ++j)
-      ob[qp * os.s + tx + 16 * j] = narrow<T>(acc[i][j] / denom);
+      ob[qp * os.s + tx + 16 * j] = acc[i][j] / denom;
   }
 }
 
@@ -232,32 +221,32 @@ constexpr size_t smem_bytes() {
          (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, Strides qs,
            Strides ks, Strides vs, Strides os, int B, int H, int KV, int Sq,
            int Sk, int causal, int window, float scale, int vec_q,
            int vec_kv, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, D>;
+  auto kernel = flash_fwd_kernel<D>;
   constexpr size_t bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), qs, ks, vs, os, H, KV,
-      Sq, Sk, causal, window, scale, vec_q, vec_kv);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), qs, ks, vs, os, H,
+      KV, Sq, Sk, causal, window, scale, vec_q, vec_kv);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. head_dim: 64 or 128 (anything else
-// returns cudaErrorInvalidValue). Strides are in elements, per tensor
-// (b, head, s); the last dimension is contiguous. window <= 0: no window.
+// f32 q, k, v and o; head_dim 64 or 128 (anything else returns
+// cudaErrorInvalidValue). Strides are in elements, per tensor (b, head,
+// s); the last dimension is contiguous. window <= 0: no window.
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int H, int KV, int Sq, int Sk, int head_dim, int64_t qsb, int64_t qsh,
+    const void* q, const void* k, const void* v, void* o, int B, int H,
+    int KV, int Sq, int Sk, int head_dim, int64_t qsb, int64_t qsh,
     int64_t qss, int64_t ksb, int64_t ksh, int64_t kss, int64_t vsb,
     int64_t vsh, int64_t vss, int64_t osb, int64_t osh, int64_t oss,
     int causal, int window, float scale, int vec_q, int vec_kv,
@@ -265,13 +254,11 @@ extern "C" int flash_attention_fwd(
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FLASH_LAUNCH(T, D)                                                  \
-  return launch<T, D>(q, k, v, o, qs, ks, vs, os, B, H, KV, Sq, Sk, causal, \
-                      window, scale, vec_q, vec_kv, st)
-  if (dtype == 0 && head_dim == 64) FLASH_LAUNCH(float, 64);
-  if (dtype == 0 && head_dim == 128) FLASH_LAUNCH(float, 128);
-  if (dtype == 1 && head_dim == 64) FLASH_LAUNCH(__nv_bfloat16, 64);
-  if (dtype == 1 && head_dim == 128) FLASH_LAUNCH(__nv_bfloat16, 128);
-#undef FLASH_LAUNCH
+  if (head_dim == 64)
+    return launch<64>(q, k, v, o, qs, ks, vs, os, B, H, KV, Sq, Sk, causal,
+                      window, scale, vec_q, vec_kv, st);
+  if (head_dim == 128)
+    return launch<128>(q, k, v, o, qs, ks, vs, os, B, H, KV, Sq, Sk, causal,
+                       window, scale, vec_q, vec_kv, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -191,6 +191,13 @@ def _attn_close(got, want, dtype):
     (1, 4, 2, 512, 64, True, 128, torch.float32, True),       # window
     (1, 4, 2, 100, 64, False, None, torch.float32, False),    # not causal
     (1, 4, 2, 77, 128, False, 30, torch.bfloat16, True),      # window only
+    # the tensor-core kernel's edges (bf16; BQ = BK = 128)
+    (1, 8, 2, 1000, 128, True, None, torch.bfloat16, True),   # ragged S
+    (1, 4, 2, 77, 64, True, None, torch.bfloat16, False),     # S < one tile
+    (2, 4, 4, 40, 128, True, None, torch.bfloat16, True),     # S < 64
+    (1, 8, 2, 300, 128, True, 30, torch.bfloat16, True),      # narrow window
+    (1, 40, 8, 384, 128, True, None, torch.bfloat16, True),   # GQA 40/8
+    (2, 32, 32, 520, 64, True, None, torch.bfloat16, False),  # Dh 64, 32/32
 ])
 def test_flash_attention_matches_plain_version(cuda, b, h, kv, s, d, causal,
                                                window, dtype, strided):
@@ -266,6 +273,14 @@ def test_serve_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous last"):
         t = torch.zeros(1, 4, 64, 8, device=cuda).transpose(2, 3)
         fkern.flash_attention(t, t, t)
+    # a bf16 row stride of 68 elements (136 bytes) is no multiple of 16
+    # bytes, which the tensor-core kernel's TMA loads need
+    before = fkern.launches["flash_attention"]
+    with pytest.raises(ValueError, match="TMA"):
+        t = torch.zeros(1, 4, 8, 68, dtype=torch.bfloat16,
+                        device=cuda)[..., :64]
+        fkern.flash_attention(t, t, t)
+    assert fkern.launches["flash_attention"] == before
     q = torch.zeros(2, 4, 64, device=cuda)
     k8 = torch.zeros(2, 2, 16, 64, dtype=torch.int8, device=cuda)
     sc = torch.ones(2, 2, 16, device=cuda)
@@ -332,8 +347,13 @@ def _scan_inputs(g, cuda, b, s, di, n, dtype, strided):
     (2, 64, 1004, 16, torch.float32, False),   # ragged Di (1004 % 16)
     (1, 1, 256, 16, torch.float32, True),      # S 1
     (2, 130, 512, 16, torch.bfloat16, True),   # bf16, ragged tile of steps
-    (1, 70, 256, 8, torch.float32, False),     # N 8: 8 lanes a channel
-    (1, 65, 96, 12, torch.float32, True),      # N 12: idle lanes past N
+    (1, 70, 256, 8, torch.float32, False),     # N 8: lanes past N
+    (1, 65, 96, 12, torch.float32, True),      # N 12: a lane past N
+    (1, 65, 512, 16, torch.float32, True),     # S one tile + 1
+    (1, 129, 256, 16, torch.bfloat16, True),   # two tiles + 1, bf16
+    (2, 65, 1004, 16, torch.bfloat16, False),  # bf16 rows not in 16 bytes
+    (1, 70, 96, 10, torch.float32, True),      # N 10: a lane half past N
+    (1, 70, 100, 5, torch.bfloat16, False),    # rows not in 16 bytes
 ])
 def test_mamba_scan_matches_plain_version(cuda, b, s, di, n, dtype, strided):
     """y and the f32 last state, each element within tol (1 + |plain|):

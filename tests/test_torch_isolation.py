@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports ``jax`` or the JAX package ``repro``; and its
-entry points run on the card unless the caller asks for the CPU."""
+"""The port stands alone: no module of ``repro_torch``, and neither
+``chip_smoke.py`` nor ``scripts/kernel_times.py``, imports ``jax`` or the
+JAX package ``repro``; and its entry points run on the card unless the
+caller asks for the CPU."""
 import ast
 import os
 import subprocess
@@ -12,7 +13,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                     ROOT / "scripts" / "kernel_times.py"]
 
 
 def _forbidden(name: str) -> bool:
