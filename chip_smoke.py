@@ -55,9 +55,14 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
 10. quant-decode phase: the int8 decode kernel against its plain version
    on one layer's slice of the serve pool (B 8, H 40 over 8, W 2048,
    Dh 128), at per-row positions from 1 to 2048, MQA, a W that is not a
-   multiple of the kernel's tile, a scalar position and every row reaching
-   into the last run of tiles the kernel cuts it into; both attention
-   phases hold each element of the output at tol * (1 + |plain|);
+   multiple of the kernel's tile, a scalar position and every row in the
+   cache's last tiles (``QD_CASES``); both attention phases hold each
+   element of the output at tol * (1 + |plain|). Times the kernel warm
+   (the same pool every call) and cold (a rotation of pools, 100 MB in
+   all, so each call finds its pool outside L2 as each layer of a serve
+   tick does) beside the time before the redesign; then captures the
+   call in a CUDA graph and requires each replay, after q and pos change,
+   to equal an eager call bit for bit;
 11. mamba-scan phase: the selective-scan kernel against its plain version,
    y and the f32 last state at tol * (1 + |plain|) (1e-5 f32, 2e-2 bf16):
    the full-width prefill (B 1, S 1536, Di 8192, N 16, B and C column
@@ -154,6 +159,27 @@ BEFORE_MS = {("flash_attention", "main"): 1.2261,
              ("flash_attention", "hybrid"): 0.5937,
              ("flash_attention", "f32"): 0.0692,
              ("mamba_scan", "main"): 0.3846, ("mamba_scan", "bf16"): 0.3836}
+# quant_decode_phase's cases: label, B, H, KV, W, pos (a [B] tuple or one
+# int for every row); Dh 128, bf16 q
+QD_CASES = [
+    ("main", 8, 40, 8, 2048, (1, 2048, 1000, 1536, 37, 2047, 512, 1300)),
+    ("mqa", 4, 48, 1, 2048, (2048, 1, 999, 1700)),
+    ("ragged-W", 8, 40, 8, 2000, (2000, 1, 64, 65, 1999, 640, 3, 1234)),
+    ("scalar", 8, 40, 8, 2048, 777),
+    # every row in the cache's last tiles
+    ("long-rows", 8, 40, 8, 2048,
+     (2048, 1793, 1900, 2047, 1801, 1999, 2020, 1850))]
+COLD_BYTES = 100_000_000       # the cold pools' bytes in all: twice L2
+# The decode kernel before its redesign (PR 13's kernel, commit 061b1b3),
+# timed warm and cold by scripts/kernel_times.py in one machine call beside
+# the redesign (PERF.md section 6: H100 80GB HBM3, 700 W)
+BEFORE_MS.update({("quant_decode_attention", "main"): 0.0728,
+                  ("quant_decode_attention", "mqa"): 0.0413,
+                  ("quant_decode_attention", "ragged-W"): 0.0725,
+                  ("quant_decode_attention", "scalar"): 0.0626,
+                  ("quant_decode_attention", "long-rows"): 0.0742})
+BEFORE_COLD_MS = {"main": 0.0751, "mqa": 0.0427, "ragged-W": 0.0746,
+                  "scalar": 0.0670, "long-rows": 0.0767}
 # f32 serve check, normwise (serve_check): on the H100 the kernel path
 # parted from the plain one by at most 2.7e-5 (a prefill's logits; 1.3e-5
 # over the ticks) and the control, one key of each row zeroed in every
@@ -898,44 +924,64 @@ def flash_phase(torch, fkern, ref):
     return results
 
 
+def qd_pool(torch, qd, gen, b, kv, w, d):
+    """One layer's int8 pool slice, [B, W, KV, Dh] quantized from bf16
+    draws, as the kernel reads it: (k8, k_scale, v8, v_scale) viewed as
+    [B, KV, W, Dh] and [B, KV, W]."""
+    pool = []
+    for _ in range(2):
+        x = torch.randn(b, w, kv, d, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        lv, sc = qd.quantize_kv(x)
+        pool += [lv.transpose(1, 2), sc.transpose(1, 2)]
+    return tuple(pool)
+
+
+def qd_positions(torch, pos):
+    return (torch.tensor(pos, dtype=torch.int32, device="cuda")
+            if isinstance(pos, tuple) else pos)
+
+
+def qd_cold(torch, qd, gen, q, pos, b, kv, w, d):
+    """A call of the decode kernel that finds its pool outside L2, as each
+    of the serve tick's layers does: every call takes the next of n
+    distinct pools of the case's size, n >= 3 and above COLD_BYTES in
+    all. Returns (call, n, bytes of the pools)."""
+    per = b * w * kv * (d + 4) * 2
+    n = max(3, COLD_BYTES // per + 1)
+    pools = [qd_pool(torch, qd, gen, b, kv, w, d) for _ in range(n)]
+    turn = [0]
+
+    def call():
+        turn[0] = (turn[0] + 1) % n
+        return qd.quant_decode_attention(q, *pools[turn[0]], pos)
+    return call, n, n * per
+
+
 def quant_decode_phase(torch, qd, ref):
     """quant_decode_attention against its plain version on one layer's
-    slice of the serve pool ([B, W, KV, Dh] viewed as [B, KV, W, Dh]);
+    slice of the serve pool ([B, W, KV, Dh] viewed as [B, KV, W, Dh]) at
+    QD_CASES, timed warm (``ms``: the same pool every call) and cold
+    (``cold_ms``: qd_cold), then captured in a CUDA graph (qd_graph_check);
     returns the numbers of the main shape."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
-    main_pos = (1, 2048, 1000, 1536, 37, 2047, 512, 1300)
-    # every row past the start of its last run of tiles (at B 8, KV 8 each
-    # row's 32 tiles are cut into 5 runs, the last from slot 1792): a run
-    # lost or merged wrongly shows on every row
-    long_pos = (2048, 1793, 1900, 2047, 1801, 1999, 2020, 1850)
-    cases = [("main", 8, 40, 8, 2048, main_pos),
-             ("mqa", 4, 48, 1, 2048, (2048, 1, 999, 1700)),
-             ("ragged-W", 8, 40, 8, 2000, (2000, 1, 64, 65, 1999, 640, 3,
-                                           1234)),
-             ("scalar", 8, 40, 8, 2048, 777),
-             ("long-rows", 8, 40, 8, 2048, long_pos)]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     results = {}
-    for label, b, h, kv, w, pos in cases:
+    for label, b, h, kv, w, pos in QD_CASES:
         d = 128
         q = torch.randn(b, h, d, generator=gen, device=dev,
                         dtype=torch.bfloat16)
-        pool = {}
-        for key in ("k", "v"):
-            x = torch.randn(b, w, kv, d, generator=gen, device=dev,
-                            dtype=torch.bfloat16)
-            pool[key], pool[key + "_scale"] = qd.quantize_kv(x)
-        args = (q, pool["k"].transpose(1, 2), pool["k_scale"].transpose(1, 2),
-                pool["v"].transpose(1, 2), pool["v_scale"].transpose(1, 2))
-        p = (torch.tensor(pos, dtype=torch.int32, device=dev)
-             if isinstance(pos, tuple) else pos)
+        args = (q,) + qd_pool(torch, qd, gen, b, kv, w, d)
+        p = qd_positions(torch, pos)
         fast = lambda: qd.quant_decode_attention(*args, p)  # noqa: E731
         plain = lambda: ref.quant_decode_ref(*args, p)  # noqa: E731
         err, worst = attn_error(torch, fast(), plain(), q.dtype)
-        n_split, per = qd.split_plan(b, kv, w, dev)
+        cold, n_pools, cold_bytes = qd_cold(torch, qd, gen, q, p, b, kv, w,
+                                            d)
         rows = pos if isinstance(pos, tuple) else (pos,) * b
-        slots = sum(min(r, w) for r in rows)
+        slots = sum(min(r, w) if r > 0 else w for r in rows)
         # levels (1 byte) and scales (4 bytes) of K and V at each valid slot
         # and kv head, q and the output (bf16), the positions
         nbytes = (slots * kv * 2 * (d + 4) + 2 * b * h * d * 2
@@ -943,21 +989,71 @@ def quant_decode_phase(torch, qd, ref):
         flops = 4 * slots * h * d
         bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
         row = {"max_abs_err": err, "worst": worst, "ms": time_ms(torch, fast),
+               "cold_ms": time_ms(torch, cold),
                "plain_ms": time_ms(torch, plain), "bound_ms": bound,
                "bound_by": "bytes", "bytes": nbytes}
+        del cold
         if label == "main":
             results["quant_decode_attention"] = row
-        print(f"kernel quant_decode_attention {label:8s} B {b} H {h} KV {kv} "
-              f"W {w} Dh {d} pos {pos} ({n_split} runs of {per} tiles a "
-              f"row): max_abs_err {err:.3e}, worst element at {worst:.3f} of "
-              f"its limit; kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, library none (no single PyTorch "
-              f"call dequantizes and attends), bound {bound:.4f} ms (bytes: "
-              f"{nbytes})" + ("" if worst <= 1 else "  FAILED"), flush=True)
+        passes, gc = qd.head_passes(h // kv, q.dtype)
+        blocks = qd.grid_blocks(b, kv, w, passes, sms, q.dtype)
+        tiles = kv * sum(qd.row_tiles(rows, w))
+        print(f"kernel quant_decode_attention {label:9s} B {b} H {h} KV {kv} "
+              f"W {w} Dh {d} pos {pos} ({tiles} tiles over {blocks} blocks "
+              f"x {passes} passes of {gc} heads): max_abs_err {err:.3e}, "
+              f"worst element at {worst:.3f} of its limit; kernel warm "
+              f"{row['ms']:.4f} ms, cold {row['cold_ms']:.4f} ms ({n_pools} "
+              f"pools, {cold_bytes / 1e6:.1f} MB) (before the redesign: warm "
+              f"{BEFORE_MS[('quant_decode_attention', label)]}, cold "
+              f"{BEFORE_COLD_MS[label]} ms), plain {row['plain_ms']:.4f} ms, "
+              f"library none (no single PyTorch call dequantizes and "
+              f"attends), bound {bound:.4f} ms (bytes: {nbytes}; cold at "
+              f"{bound / row['cold_ms']:.3f} of it)"
+              + ("" if worst <= 1 else "  FAILED"), flush=True)
         if not worst <= 1:
             raise AssertionError(f"quant_decode_attention disagrees with its "
                                  f"plain version at {label}")
+    qd_graph_check(torch, qd, ref, gen)
     return results
+
+
+def qd_graph_check(torch, qd, ref, gen):
+    """The main case's call captured in a CUDA graph with q and pos in
+    static tensors: after each change of both, a replay must equal an
+    eager call bit for bit (the kernel's merge counters come back to zero
+    and nothing reads pos on the host) and the plain version within
+    ATTN_TOL."""
+    dev = torch.device("cuda")
+    _, b, h, kv, w, _ = QD_CASES[0]
+    pool = qd_pool(torch, qd, gen, b, kv, w, 128)
+    draws = [(1, 2048, 1000, 1536, 37, 2047, 512, 1300), (2048,) + (1,) * 7,
+             (0,) * 8, (64, 65, 63, 3000, 128, 1, 2, 777)]
+    qs = [torch.randn(b, h, 128, generator=gen, device=dev,
+                      dtype=torch.bfloat16) for _ in draws]
+    q_in, p_in = qs[0].clone(), qd_positions(torch, draws[0])
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        qd.quant_decode_attention(q_in, *pool, p_in)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = qd.quant_decode_attention(q_in, *pool, p_in)
+    for q, pos in zip(qs, draws):
+        q_in.copy_(q)
+        p_in.copy_(qd_positions(torch, pos))
+        graph.replay()
+        eager = qd.quant_decode_attention(q, *pool, p_in)
+        _, worst = attn_error(torch, eager, ref.quant_decode_ref(
+            q, *pool, p_in), q.dtype)
+        same = torch.equal(out, eager)
+        print(f"quant_decode_attention graph replay pos {pos}: "
+              f"{'equal to' if same else 'DIFFERS from'} the eager call, "
+              f"worst element at {worst:.3f} of its limit", flush=True)
+        if not (same and worst <= 1):
+            raise AssertionError("quant_decode_attention's graph replay "
+                                 "disagrees with the eager call")
+    del graph
 
 
 def percentile(values, q):
@@ -1569,7 +1665,9 @@ def main() -> int:
         "ms": numbers[name]["ms"], "plain_ms": numbers[name]["plain_ms"],
         "bound_ms": numbers[name]["bound_ms"],
         "bound_by": numbers[name].get("bound_by", "bytes"),
-        "library_ms": numbers[name].get("library_ms")} for name in SOURCES]
+        "library_ms": numbers[name].get("library_ms"),
+        **({"cold_ms": numbers[name]["cold_ms"]}
+           if "cold_ms" in numbers[name] else {})} for name in SOURCES]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,25 +1,31 @@
 #!/usr/bin/env python3
-"""Times the PyTorch port's flash_attention and mamba_scan kernels of one
-checkout at chip_smoke.py's flash and scan shapes, two ways:
+"""Times the PyTorch port's flash_attention, mamba_scan and
+quant_decode_attention kernels of one checkout at chip_smoke.py's flash,
+scan and decode shapes, two ways:
 
 - ``ms``: the card's time, as chip_smoke.py's ``time_ms`` takes it (a spin
   kernel queued before each call, so the host's issue is hidden);
 - ``one_call_ms``: one call between two events on an idle card, the host's
   issue of the call included (how chip_smoke.py timed kernels before it
-  hid the issue).
+  hid the issue);
+
+and the decode also ``cold_ms``: the card's time of a call whose pool is
+outside L2 (chip_smoke.py's ``qd_cold``: a rotation of pools, 100 MB in
+all), as each layer of a serve tick finds it.
 
 Usage, on a machine with one CUDA card and ``nvcc``::
 
-    python3 scripts/kernel_times.py [--src DIR]
+    python3 scripts/kernel_times.py [--src DIR] [--kernels NAME ...]
 
 ``--src`` is the ``src`` directory of the checkout whose kernels are timed
 (default: this checkout's); they are built into that checkout's
 ``build/kernels/``. To compare two commits like for like, unpack the other
 one's ``src/repro_torch`` with ``git archive`` into a directory that
 ``.gitignore`` lists and run both in one machine call, in the order other,
-this, this, other. The two wrappers' signatures have not changed since
-they were added. Prints the card's name and power limit, then one JSON line
-per kernel and shape. Imports no JAX.
+this, this, other. The three wrappers' signatures have not changed since
+they were added. ``--kernels`` times only the kernels named. Prints the
+card's name and power limit, then one JSON line per kernel and shape.
+Imports no JAX.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+KERNELS = ("flash_attention", "mamba_scan", "quant_decode_attention")
 
 
 def one_call_ms(torch, fn, reps=30, warmup=3):
@@ -53,7 +60,10 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--src", default=str(ROOT / "src"),
                         help="the src directory whose repro_torch to time")
-    src = Path(parser.parse_args().src).resolve()
+    parser.add_argument("--kernels", nargs="+", default=list(KERNELS),
+                        choices=KERNELS, help="the kernels to time")
+    opts = parser.parse_args()
+    src = Path(opts.src).resolve()
     sys.path.insert(0, str(src))
     import torch
     if not torch.cuda.is_available():
@@ -61,7 +71,8 @@ def main() -> int:
         return 1
     from repro_torch.kernels import flash_attention as fkern
     from repro_torch.kernels import mamba_scan as mk
-    for mod in (fkern, mk):
+    from repro_torch.kernels import quant_decode as qd
+    for mod in (fkern, mk, qd):
         if not Path(mod.__file__).resolve().is_relative_to(src):
             raise RuntimeError(f"{mod.__name__} came from {mod.__file__}, "
                                f"not from {src}")
@@ -76,23 +87,37 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
 
-    def report(name, label, fn):
+    def report(name, label, fn, **extra):
         print(json.dumps({"kernel": name, "case": label, "src": str(src),
                           "ms": cs.time_ms(torch, fn),
-                          "one_call_ms": one_call_ms(torch, fn)}),
-              flush=True)
+                          "one_call_ms": one_call_ms(torch, fn),
+                          **{k: cs.time_ms(torch, f)
+                             for k, f in extra.items()}}), flush=True)
 
-    for label, b, h, kv, s, d, dtype, window in cs.FLASH_CASES:
-        q, k, v = cs.flash_inputs(torch, gen, b, h, kv, s, d,
-                                  getattr(torch, dtype))
-        report("flash_attention", label,
-               lambda: fkern.flash_attention(q, k, v, causal=True,
-                                             window=window))
-    for label, b, s, di, n, dtype in cs.SCAN_CASES:
-        if label in cs.SCAN_TIMED:
-            args = cs.scan_inputs(torch, gen, b, s, di, n,
-                                  getattr(torch, dtype))
-            report("mamba_scan", label, lambda: mk.mamba_scan(*args))
+    if "flash_attention" in opts.kernels:
+        for label, b, h, kv, s, d, dtype, window in cs.FLASH_CASES:
+            q, k, v = cs.flash_inputs(torch, gen, b, h, kv, s, d,
+                                      getattr(torch, dtype))
+            report("flash_attention", label,
+                   lambda: fkern.flash_attention(q, k, v, causal=True,
+                                                 window=window))
+    if "mamba_scan" in opts.kernels:
+        for label, b, s, di, n, dtype in cs.SCAN_CASES:
+            if label in cs.SCAN_TIMED:
+                args = cs.scan_inputs(torch, gen, b, s, di, n,
+                                      getattr(torch, dtype))
+                report("mamba_scan", label, lambda: mk.mamba_scan(*args))
+    if "quant_decode_attention" in opts.kernels:
+        for label, b, h, kv, w, pos in cs.QD_CASES:
+            q = torch.randn(b, h, 128, generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            pool = cs.qd_pool(torch, qd, gen, b, kv, w, 128)
+            p = cs.qd_positions(torch, pos)
+            cold, _, _ = cs.qd_cold(torch, qd, gen, q, p, b, kv, w, 128)
+            report("quant_decode_attention", label,
+                   lambda: qd.quant_decode_attention(q, *pool, p),
+                   cold_ms=cold)
+            del cold
     return 0
 
 

@@ -229,13 +229,22 @@ def test_flash_attention_matches_plain_version(cuda, b, h, kv, s, d, causal,
     (2, 8, 2, 100, 64, (3, 99), torch.float32, 1),          # misaligned
     (1, 4, 2, 70, 64, 0, torch.float32, 0),                 # nothing valid
     (3, 8, 2, 200, 128, (200, 193, 199), torch.bfloat16, 0),  # every run
+    # shares that cross from one row into the next
+    (8, 40, 8, 2048, 128, (2048,) + (1,) * 7, torch.bfloat16, 0),
+    (8, 40, 8, 2048, 128, (2048,) + (1,) * 7, torch.float32, 0),
+    (8, 40, 8, 512, 128, (0,) * 8, torch.float32, 0),       # all rows at 0
+    (8, 40, 8, 2048, 128, (2048,) * 8, torch.bfloat16, 0),  # pos = W
+    (4, 32, 4, 1000, 64, (1000, 3, 640, 999), torch.float32, 0),  # g 8
+    (4, 32, 4, 1000, 64, (1000, 3, 640, 999), torch.bfloat16, 0),
 ])
 def test_quant_decode_matches_plain_version(cuda, b, h, kv, w, d, pos, dtype,
                                             offset):
     """Through one layer's [B, W, KV, Dh] pool slice viewed as
     [B, KV, W, Dh] (the serve path's layout; ``offset`` shifts the levels
     off 16-byte alignment), at per-row and scalar positions; "every run":
-    each row reaches into the last of the runs its tiles are cut into."""
+    each row reaches into the last tiles of the cache; the cases below it
+    give the blocks shares that cross from one (row, kv head) into the
+    next, so a pair is merged from several blocks' partials."""
     from repro_torch.kernels import quant_decode as qd
     g = torch.Generator(device=cuda)
     g.manual_seed(w * h + d)
@@ -292,10 +301,51 @@ def test_serve_wrappers_reject_what_the_kernels_do_not_take(cuda):
         qd.quant_decode_attention(q, k8, sc, k8, sc,
                                   torch.ones(3, dtype=torch.int32,
                                              device=cuda))
-    big = torch.zeros(1, 512, 128, device=cuda)
-    k1 = torch.zeros(1, 1, 16, 128, dtype=torch.int8, device=cuda)
+    # each row's position and first task sit in shared memory: 25,000 rows
+    # overflow a block (any group size fits: large groups take passes)
+    rows = torch.zeros(25_000, 2, 64, device=cuda)
+    k1 = torch.zeros(25_000, 2, 1, 64, dtype=torch.int8, device=cuda)
+    s1 = torch.ones(25_000, 2, 1, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
-        qd.quant_decode_attention(big, k1, sc[:1, :1], k1, sc[:1, :1], 3)
+        qd.quant_decode_attention(rows, k1, s1, k1, s1, 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quant_decode_replays_in_a_cuda_graph(cuda, dtype):
+    """The call captured in a CUDA graph with q and pos in static tensors:
+    each replay, after both change, equals an eager call bit for bit (the
+    merge counters come back to zero, and no host sync reads pos)."""
+    from repro_torch.kernels import quant_decode as qd
+    g = torch.Generator(device=cuda)
+    g.manual_seed(11)
+    b, h, kv, w, d = 8, 40, 8, 2048, 128
+    pool = [qd.quantize_kv(torch.randn(b, w, kv, d, generator=g,
+                                       device=cuda)) for _ in range(2)]
+    (k8, ks), (v8, vs) = [(lv.transpose(1, 2), sc.transpose(1, 2))
+                          for lv, sc in pool]
+    rows = [(1, 2048, 1000, 1536, 37, 2047, 512, 1300),
+            (2048,) + (1,) * 7, (0,) * 8, (64, 65, 63, 3000, 128, 1, 2, 777)]
+    qs = [torch.randn(b, h, d, generator=g, device=cuda, dtype=dtype)
+          for _ in rows]
+    q_in = qs[0].clone()
+    p_in = torch.tensor(rows[0], dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):              # warm up: build, allocate
+        qd.quant_decode_attention(q_in, k8, ks, v8, vs, p_in)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = qd.quant_decode_attention(q_in, k8, ks, v8, vs, p_in)
+    for q, pos in zip(qs, rows):
+        q_in.copy_(q)
+        p_in.copy_(torch.tensor(pos, dtype=torch.int32))
+        graph.replay()
+        eager = qd.quant_decode_attention(q, k8, ks, v8, vs, p_in)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        _attn_close(eager, ref.quant_decode_ref(q, k8, ks, v8, vs, p_in),
+                    dtype)
 
 
 def test_engine_on_the_card_launches_both_kernels(cuda):

@@ -1,14 +1,17 @@
 """Host-side logic of the attention and scan wrappers, on the CPU: which
 kernel a dtype takes, the checks a wrapper applies before it reaches for a
-library, the tile plans' shared memory, and the flags and plan a launch
-hands the library (through a stand-in library that records the call). The
-calls end (..., flags, smem plan, stream), so they are read from the
-end."""
+library, the tile plans' shared memory, the int8 decode's work split, and
+the flags and plan a launch hands the library (through a stand-in library
+that records the call). The calls end (..., flags, smem plan, stream), so
+they are read from the end."""
+import hypothesis.strategies as st
 import pytest
 import torch
+from hypothesis import given, settings
 
 from repro_torch.kernels import flash_attention as fkern
 from repro_torch.kernels import mamba_scan as mk
+from repro_torch.kernels import quant_decode as qd
 
 SMEM_LIMIT = 232_448   # bytes of shared memory one block may use on Hopper
 
@@ -31,20 +34,25 @@ class _Untouchable:
         raise AssertionError(f"the wrapper reached for the library ({name})")
 
 
+SM_COUNT = 132         # an H100 SXM's SMs
+
+
 @pytest.fixture
 def recorder(monkeypatch):
     lib = _Recorder()
-    for mod in (fkern, mk):
+    for mod in (fkern, mk, qd):
         monkeypatch.setattr(mod, "_library", lambda *a: lib)
         monkeypatch.setattr(mod, "_stream", lambda device: 0)
+    monkeypatch.setattr(qd, "_sm_count", lambda device: SM_COUNT)
     return lib
 
 
 @pytest.fixture
 def untouchable(monkeypatch):
-    for mod in (fkern, mk):
+    for mod in (fkern, mk, qd):
         monkeypatch.setattr(mod, "_library", lambda *a: _Untouchable())
         monkeypatch.setattr(mod, "_stream", lambda device: 0)
+    monkeypatch.setattr(qd, "_sm_count", lambda device: SM_COUNT)
 
 
 def _prefill_view(b, s, heads, d, dtype, pad=0):
@@ -218,3 +226,200 @@ def test_copies16(shape, stride, offset, want):
     t = (base[:torch.Size(shape).numel()].view(shape) if stride is None
          else base.as_strided(shape, stride))
     assert mk.copies16(t) is want
+
+
+# ------------------------------------------------ the int8 decode's plan
+
+W = 2048               # the serve pool's window (chip_smoke.py)
+# rows at the edges of a tile and of the cache: empty (0: every slot
+# masked, all W slots walked), 1, 63-65, W, past W
+EDGE_POS = (0, 1, 63, 64, 65, W - 1, W, W + 1, 5 * W)
+
+
+def _check_split(pos, kv, w, n_blocks):
+    """The device's work split covers every (row, kv head, tile) once, in
+    order; no share exceeds ceil(T / blocks) + 1 tiles; the kernel's
+    block_of finds each task's block; every block from the first to the
+    last of a (row, kv head) holds part of it (the kernel merges that many
+    parts); and the parts get distinct partial records (block + row * KV +
+    kv head)."""
+    tiles = qd.row_tiles(pos, w)
+    want = [(b, h, j) for b, n in enumerate(tiles) for h in range(kv)
+            for j in range(n)]
+    shares = qd.shares(pos, kv, w, n_blocks)
+    assert len(shares) == n_blocks
+    assert [t for share in shares for t in share] == want
+    total = len(want)
+    assert max(map(len, shares)) <= -(-total // n_blocks) + 1
+    t = 0
+    records = set()
+    for i, share in enumerate(shares):
+        for b, h, _ in share:
+            assert qd.block_of(t, total, n_blocks) == i
+            records.add((i, b * kv + h))
+            t += 1
+    assert len({i + pair for i, pair in records}) == len(records)
+    for pair in {p for _, p in records}:
+        blocks = sorted(i for i, p in records if p == pair)
+        assert blocks == list(range(blocks[0], blocks[-1] + 1))
+
+
+@pytest.mark.parametrize("pos", [
+    (1, 2048, 1000, 1536, 37, 2047, 512, 1300),   # chip_smoke.py's main
+    EDGE_POS[:8],
+    (0,) * 8,                                      # all rows empty
+    (1,) * 8,
+    (W,) * 8,
+    (1, 1, 1, W, 1, 1, 1, 1),                      # one long row
+])
+@pytest.mark.parametrize("kv,n_blocks", [(8, 264), (1, 26), (8, 7),
+                                         (2, 1)])
+def test_decode_split_covers_every_tile_once(pos, kv, n_blocks):
+    _check_split(pos, kv, W, n_blocks)
+
+
+@settings(max_examples=200, deadline=None)
+@given(st.lists(st.one_of(st.sampled_from(EDGE_POS),
+                          st.integers(-3, 3 * W)), min_size=1, max_size=12),
+       st.integers(1, 8), st.integers(1, 300),
+       st.sampled_from([W, 2000, 64, 65, 1]))
+def test_decode_split_property(pos, kv, n_blocks, w):
+    _check_split(pos, kv, w, n_blocks)
+
+
+def test_decode_split_balances_the_main_case():
+    """chip_smoke.py's main case (bf16): 1,080 tasks over 396 blocks, at
+    most 3 tiles a block where PR 13's split walked 7 in series."""
+    pos = (1, 2048, 1000, 1536, 37, 2047, 512, 1300)
+    n_blocks = qd.grid_blocks(8, 8, W, 1, SM_COUNT, torch.bfloat16)
+    shares = qd.shares(pos, 8, W, n_blocks)
+    assert n_blocks == 396 and sum(map(len, shares)) == 1080
+    assert max(map(len, shares)) == 3
+
+
+@pytest.mark.parametrize("g,dtype,want", [
+    (1, torch.float32, (1, 1)), (5, torch.float32, (1, 5)),
+    (6, torch.float32, (2, 3)), (8, torch.float32, (2, 4)),
+    (48, torch.float32, (10, 5)), (512, torch.float32, (103, 5)),
+    (5, torch.bfloat16, (1, 5)), (8, torch.bfloat16, (1, 8)),
+    (9, torch.bfloat16, (2, 5)), (48, torch.bfloat16, (6, 8)),
+    (7, torch.bfloat16, (1, 7))])
+def test_decode_head_passes(g, dtype, want):
+    passes, gc = qd.head_passes(g, dtype)
+    assert (passes, gc) == want
+    assert gc <= qd.GROUP[dtype] and gc * (passes - 1) < g <= gc * passes
+
+
+@pytest.mark.parametrize("head_dim,dtype,want", [
+    (128, torch.float32, 652), (64, torch.float32, 332),
+    (128, torch.bfloat16, 1040), (64, torch.bfloat16, 528)])
+def test_decode_partial_records_are_whole_float4s(head_dim, dtype, want):
+    """The last block merges the records with float4 loads."""
+    assert qd.record_floats(head_dim, dtype) == want and want % 4 == 0
+
+
+@pytest.mark.parametrize("b,kv,s,passes,dtype,want", [
+    (8, 8, 2048, 1, torch.bfloat16, 396),  # the serve pool: 3 blocks an SM
+    (8, 8, 2048, 1, torch.float32, 264),   # f32: 2 blocks an SM
+    (4, 1, 2048, 6, torch.bfloat16, 66),   # MQA at g 48: six passes
+    (4, 1, 2048, 10, torch.float32, 26),   # ten in f32
+    (2, 2, 100, 1, torch.bfloat16, 8),     # no more blocks than tiles
+    (1, 1, 64, 103, torch.float32, 1),
+])
+def test_decode_grid_is_fixed_by_host_sizes(b, kv, s, passes, dtype, want):
+    assert qd.grid_blocks(b, kv, s, passes, SM_COUNT, dtype) == want
+
+
+@pytest.mark.parametrize("head_dim,dtype,expected", [
+    (128, torch.bfloat16, 73_544), (128, torch.float32, 68_840),
+    (64, torch.bfloat16, 37_704), (64, torch.float32, 35_304)])
+@pytest.mark.parametrize("g", [1, 5, 8, 48])
+def test_decode_smem_plan_fits_a_block(head_dim, dtype, expected, g):
+    """At the serve path's 8 rows: three stages of int8 K and V tiles with
+    their scales and a pass's q rows, the warps' merge area and the rows'
+    positions. The plan holds GROUP heads whatever g is (larger groups take
+    more passes), so every g fits, and BLOCKS_PER_SM blocks share an SM's
+    228 KB (each with 1 KB the card keeps)."""
+    assert qd.head_passes(g, dtype)[1] <= qd.GROUP[dtype]
+    assert qd.smem_bytes(head_dim, dtype, 8) == expected <= qd.SMEM_LIMIT
+    assert qd.BLOCKS_PER_SM[dtype] * (expected + 1024) <= 228 * 1024
+
+
+def _decode_args(b, h, kv, w, d, dtype=torch.bfloat16, offset=0):
+    """q and one layer's [B, W, KV, Dh] pool slice viewed as [B, KV, W,
+    Dh], as the decode hands them in; ``offset`` moves the levels off a
+    16-byte boundary."""
+    q = torch.zeros(b, h, d, dtype=dtype)
+    n = b * w * kv * d
+
+    def levels():
+        return torch.zeros(n + offset, dtype=torch.int8)[offset:].view(
+            b, w, kv, d).transpose(1, 2)
+    scales = torch.ones(b, w, kv).transpose(1, 2)
+    return q, levels(), scales, levels(), scales
+
+
+@pytest.mark.parametrize("b,h,kv,w,d,dtype,offset", [
+    (8, 40, 8, 2048, 128, torch.bfloat16, 0),   # qwen2.5-14b's decode
+    (4, 48, 1, 2048, 128, torch.bfloat16, 0),   # MQA: six passes
+    (2, 8, 2, 100, 64, torch.float32, 1),       # misaligned levels
+])
+def test_decode_launch_hands_the_library_its_plan(recorder, b, h, kv, w, d,
+                                                  dtype, offset):
+    """One call with the fixed grid, the counters' and scratch pointers
+    and the alignment flags; the counters are the device's own buffer."""
+    args = _decode_args(b, h, kv, w, d, dtype, offset)
+    pos = torch.arange(1, b + 1, dtype=torch.int64) * 37
+    before = qd.launches["quant_decode_attention"]
+    out = qd._launch(*args, pos)
+    assert qd.launches["quant_decode_attention"] == before + 1
+    assert out.shape == (b, h, d) and out.dtype == dtype
+    ((name, call),) = recorder.calls
+    assert name == "quant_decode_attention"
+    passes, gc = qd.head_passes(h // kv, dtype)
+    n_blocks = qd.grid_blocks(b, kv, w, passes, SM_COUNT, dtype)
+    assert call[10:19] == (n_blocks, passes, gc, fkern.DTYPES[dtype], b, h,
+                           kv, w, d)
+    assert call[6] == 1                      # one position a row
+    counters = qd._counters(torch.device("cpu"), passes * b * kv)
+    assert call[9] == counters.data_ptr()
+    assert counters.numel() >= passes * b * kv and not counters.any()
+    assert call[8] not in (0, call[9])       # the partials' scratch
+    assert call[-3:-1] == (int(offset == 0), 1)
+
+
+def test_decode_scalar_position_is_read_by_every_row(recorder):
+    qd._launch(*_decode_args(2, 8, 2, 100, 64, torch.float32), 7)
+    ((_, call),) = recorder.calls
+    assert call[6] == 0                      # stride 0: one shared position
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("q dtype", TypeError, "float16"),
+    ("level dtype", TypeError, "int8"),
+    ("scale shape", ValueError, "scales"),
+    ("pos shape", ValueError, "pos"),
+    ("head_dim", ValueError, "head_dim"),
+    ("rows", ValueError, "shared memory"),
+])
+def test_decode_refusals_come_before_the_library(untouchable, case, error,
+                                                 match):
+    # 25,000 rows' positions and task starts overflow a block's shared
+    # memory
+    b, h = (25_000, 2) if case == "rows" else (2, 8)
+    q, k8, ks, v8, vs = _decode_args(b, h, 2, 16, 64, torch.float32)
+    pos = 3
+    if case == "q dtype":
+        q = q.half()
+    elif case == "level dtype":
+        k8 = k8.float()
+    elif case == "scale shape":
+        ks = ks[:, :, :8]
+    elif case == "pos shape":
+        pos = torch.ones(b + 1, dtype=torch.int32)
+    elif case == "head_dim":
+        q, k8, ks, v8, vs = _decode_args(b, 8, 2, 16, 96, torch.float32)
+    before = qd.launches["quant_decode_attention"]
+    with pytest.raises(error, match=match):
+        qd._launch(q, k8, ks, v8, vs, pos)
+    assert qd.launches["quant_decode_attention"] == before
