@@ -13,7 +13,9 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
    of the bf16 flash library with ``cuobjdump -sass`` and fails on none;
 3. kernel phase: holds each kernel against its plain PyTorch version on the
    card: the update kernels at the main path's shape [8, 1_066_240], at
-   M = 1, at a ragged n, at a misaligned view and at n < 4 (within 1e-6);
+   M = 1, at a ragged n, at a misaligned view and at n < 4 (within 1e-6),
+   ``adafbio_update`` both with one shared ``a`` row and with one ``a`` row
+   per client row (the gossip engine's per-node accumulators);
    the int8 codec's quantize and dequantize at the codec path's message
    [8, 2_173_440] in its 10 leaf segments, at M = 1, at 4 bits, at a ragged
    n, at two misaligned views (one with n % 4 == 0) and at n < 4 (bit for
@@ -36,13 +38,31 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
    and one dequantize launch per round, a finite loss, bytes as the
    formulas give them; then broadcast population rounds against the
    masked path with the same cohorts (within 1e-5), and a topk run;
-7. round checks: one round on the card against the same round on the CPU
+7. hyperclean-mnist-width: hyper-cleaning (8 clients, 7,500 training and
+   1,250 validation samples each, 784 features, 10 classes, 30% of the
+   training labels corrupted: x is a [8, 7500] table per client, y 7,850
+   entries), AdaFBiO eager (tracking the consensus error) and scan, 4
+   rounds of q 8, K 4, theta 0.1 (under 1/L_g, asserted): exact launch
+   counts, eager == scan within 1e-5, a finite consensus log, finite
+   ``true_grad_norm`` and ``val_loss`` at full width, and both against the
+   CPU in float64 at a reduced width (feat 64, 512 samples) within 1e-4;
+   async-int8-tiers: hyper-representation at MNIST width on 32 clients,
+   cohorts of 8, tiered delays, staleness bound 4, delay_eta 0.5,
+   participants, int8 with error feedback, 6 rounds: launch counts, bytes
+   per arrival, the staleness histogram summing to the accepted arrivals,
+   no client in flight dispatched again; the degenerate setting against
+   the synchronous population path (within 1e-5); gossip-ring-int8: 8
+   nodes on a ring, int8 with error feedback, 4 rounds: 16 directed edges
+   billed a sync, launch counts with every adafbio launch on per-node
+   accumulators; the complete graph against the star population engine
+   (within 1e-5). Each prints steady ms/round and peak device memory;
+8. round checks: one round on the card against the same round on the CPU
    through the plain kernels, stage by stage, beside a float64 witness: at
    a Neumann step theta under 1/L_g (held tight), and at the main path's
    theta = 1 (the card held no farther from the witness than the CPU);
-8. the quadratic quickstart problem, eager and scan, with its grad-norm
+9. the quadratic quickstart problem, eager and scan, with its grad-norm
    trajectory;
-9. flash phase: the prefill's attention kernel against its plain version
+10. flash phase: the prefill's attention kernel against its plain version
    (f32 math) in the prefill's [B, S, H, D] layout: the full-width prefill
    (qwen2.5-14b: 40 heads over 8, head_dim 128, S 1536, bf16, causal), MHA
    at a ragged S 1000, MQA at granite-20b's 48 heads over 1, a sliding
@@ -52,7 +72,7 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
    ``F.scaled_dot_product_attention`` (the library yardstick, not on the
    path) beside the bound and the time before the redesign
    (``BEFORE_MS``);
-10. quant-decode phase: the int8 decode kernel against its plain version
+11. quant-decode phase: the int8 decode kernel against its plain version
    on one layer's slice of the serve pool (B 8, H 40 over 8, W 2048,
    Dh 128), at per-row positions from 1 to 2048, MQA, a W that is not a
    multiple of the kernel's tile, a scalar position and every row in the
@@ -63,7 +83,7 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
    tick does) beside the time before the redesign; then captures the
    call in a CUDA graph and requires each replay, after q and pos change,
    to equal an eager call bit for bit;
-11. mamba-scan phase: the selective-scan kernel against its plain version,
+12. mamba-scan phase: the selective-scan kernel against its plain version,
    y and the f32 last state at tol * (1 + |plain|) (1e-5 f32, 2e-2 bf16):
    the full-width prefill (B 1, S 1536, Di 8192, N 16, B and C column
    views of the [1, 1536, 288] projection), B 2 at S 1024, a ragged Di
@@ -71,31 +91,31 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
    bound (the larger of bytes over 3.35 TB/s and the exponentials over the
    special-function units' rate at the card's clock) and the time before
    the redesign;
-12. serve phase: qwen2.5-14b at full width (48 layers, bf16, 14.8 B params
+13. serve phase: qwen2.5-14b at full width (48 layers, bf16, 14.8 B params
    from a seeded generator) through ``Engine(slots=8, max_len=2048,
    kv_quant=True)`` replaying 16 requests of 256, 1024 and 1536 prompt
    tokens: 48 flash launches per admission and 48 int8-decode launches per
    tick, req/s, tok/s, latency, steady prefill and tick times;
-13. serve check: with the same weights, two requests' prefill logits and 8
+14. serve check: with the same weights, two requests' prefill logits and 8
    teacher-forced decode ticks, every path starting each tick from one
    int8 pool, through the kernels against the plain versions: in bf16 beside
    the reference's own path as a witness of bf16 noise, then with the
    weights widened to f32 against a limit that a one-key fault (the
    control) exceeds; and the greedy-token agreement;
-14. ssm serve phase: falcon-mamba-7b at full width (64 layers, bf16, 7.3 B
+15. ssm serve phase: falcon-mamba-7b at full width (64 layers, bf16, 7.3 B
    params) through ``Engine(slots=8, max_len=2048)`` on the same 16
    requests: 64 mamba_scan launches per admission and no other kernel;
-15. ssm check: prefill logits and 8 decode ticks through the scan kernel
+16. ssm check: prefill logits and 8 decode ticks through the scan kernel
    against its plain version, in bf16 beside the reference's chunked scan
    as a witness, then in f32 against a limit that a one-step scan fault
    (the state zeroed before the prompt's last 64 steps) exceeds;
-16. hybrid serve phase: zamba2-1.2b at full width (38 mamba2 layers and
+17. hybrid serve phase: zamba2-1.2b at full width (38 mamba2 layers and
    the shared attention block after each 6) on 8 of the requests: 6 flash
    launches per admission; then its f32 prefill logits at each prompt
    length through the kernel path against the plain path, within a limit
    that a one-key fault (the control) exceeds, and against the reference
    path where it takes the prompt;
-17. one JSON line with every kernel's numbers, then the result line
+18. one JSON line with every kernel's numbers, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Every phase either passes or raises, and the script exits nonzero.
@@ -253,6 +273,20 @@ STAGE_RTOL = 1e-5
 WITNESS_FACTOR = 4.0
 WITNESS_FLOOR = 1e-6
 ENGINE_RTOL = 1e-5             # eager vs scan on the card: the same ops
+# hyperclean_path: MNIST's 60,000/10,000 split over 8 clients at 784
+# features (synthetic data from the seed). The Neumann step must stay under
+# 1/L_g: at this width L_g is far above the reference's small default
+# (feat 32) would give, so theta is 0.1, and the run asserts theta * L_g <= 1
+HC_MNIST = dict(n_clients=8, n_train_per_client=7500, n_val_per_client=1250,
+                feat_dim=784, n_classes=10, corrupt_frac=0.3, batch=256)
+HC_THETA = 0.1
+HC_ROUNDS = 4
+# the exact diagnostics, card f32 against CPU float64, at a reduced width
+HC_CHECK = dict(n_clients=8, n_train_per_client=512, n_val_per_client=128,
+                feat_dim=64, n_classes=10, corrupt_frac=0.3, batch=64)
+DIAG_RTOL = 1e-4
+ASYNC_ROUNDS = 6
+GOSSIP_ROUNDS = 4
 # Broadcast population rounds against the masked path with the same
 # cohorts: the same math, but the hypergradient's batched products run over
 # 4 clients instead of 8, so the card may order their sums differently. At
@@ -316,6 +350,8 @@ def kernel_phase(torch, kern, ref):
             return flat[offset:].view(rows, cols)
         gn, go, est, p, w = (buf(m, n) for _ in range(5))
         a = buf(1, n)[0].abs()
+        # the gossip engine's per-node accumulators: one row per client row
+        a_rows = buf(m, n).abs()
         beta = torch.rand((), generator=gen, device=dev)
         lr_eta = torch.full((), 0.01, device=dev)
         rho = torch.full((), 1e-4, device=dev)
@@ -328,6 +364,10 @@ def kernel_phase(torch, kern, ref):
                 lambda: kern.adafbio_update(p, w, a, lr_eta, rho),
                 lambda: ref.adafbio_update_ref(p, w, a, lr_eta, rho),
                 12 * m * n + 4 * n),
+            "adafbio_update per-row": (
+                lambda: kern.adafbio_update(p, w, a_rows, lr_eta, rho),
+                lambda: ref.adafbio_update_ref(p, w, a_rows, lr_eta, rho),
+                16 * m * n),
         }
         for name, (fast, plain, nbytes) in calls.items():
             got, want = fast(), plain()
@@ -340,8 +380,13 @@ def kernel_phase(torch, kern, ref):
                 row.update(ms=time_ms(torch, fast), plain_ms=time_ms(
                     torch, plain), bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                     bytes=nbytes)
-                results[name] = row
-            print(f"kernel {name:15s} {label:10s} [{m}, {n}] max_abs_err "
+                if name.endswith(" per-row"):
+                    results["adafbio_update"].update(
+                        {f"per_row_{k}": row[k] for k in
+                         ("max_abs_err", "ms", "plain_ms", "bound_ms")})
+                else:
+                    results[name] = row
+            print(f"kernel {name:22s} {label:10s} [{m}, {n}] max_abs_err "
                   f"{err:.3e} (limit {limit:.1e}) "
                   + (f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f}"
                      f" ms bound {row['bound_ms']:.4f} ms"
@@ -651,6 +696,342 @@ def topk_run(torch, task, cfg):
     print(f"topk run (frac 0.1, EF, scan): {syncs} syncs, bytes_up "
           f"{res.bytes_up[-1]}; val loss {[round(v, 5) for v in res.metric]}",
           flush=True)
+
+
+def peak_gib(torch):
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def add_counts(total, counts):
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+def check_counts(what, counts, want):
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, want {want}")
+
+
+def final_gap(torch, a, b):
+    """Largest normwise relative error over the leaves of two final
+    states."""
+    from repro_torch.core.tree_util import tree_leaves
+    return max(rel_err(torch, x, y) for x, y in zip(tree_leaves(a),
+                                                    tree_leaves(b)))
+
+
+def hyperclean_path(torch, kerns):
+    """Hyper-cleaning at MNIST width (the paper's second experiment: 8
+    clients holding MNIST's 60,000/10,000 split, 784 features, 10 classes,
+    30% of the training labels corrupted; synthetic data from the seed):
+    AdaFBiO eager (tracking the consensus error) and scan for HC_ROUNDS
+    rounds of q 8, K 4; then the exact diagnostics at the final state, and
+    card against CPU float64 at HC_CHECK's reduced width."""
+    from repro_torch.configs import HyperCleanConfig
+    from repro_torch.tasks import FedDriver, build_hyperclean
+
+    cfg = HyperCleanConfig(**HC_MNIST)
+    fed = dataclasses.replace(cfg.fed, theta=HC_THETA)
+    task = build_hyperclean(cfg, device="cuda")
+    q = fed.q
+    steps = HC_ROUNDS * q
+    launches, finals = {}, {}
+    for engine in ("eager", "scan"):
+        drv = FedDriver(task["problem"], fed, cfg.n_clients, task["batch_fn"],
+                        task["init_xy"], engine=engine,
+                        track_consensus=engine == "eager", device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(kerns)
+        res = drv.run(steps, seed=0, eval_every=q)
+        torch.cuda.synchronize()
+        counts = launch_counts(kerns)
+        syncs = res.comms[-1]
+        check_counts(f"hyperclean {engine}", counts, {
+            "storm_update": 2 * steps, "adafbio_update": steps + syncs,
+            "quantize_stoch": 0, "dequantize": 0})
+        add_counts(launches, counts)
+        if engine == "eager":
+            log = drv.consensus_log
+            if len(log) != syncs or not all(
+                    math.isfinite(r[k]) for r in log for k in "xyvw"):
+                raise AssertionError(f"hyperclean consensus log {log}")
+            print("hyperclean consensus error before each sync: "
+                  + "; ".join(f"step {r['step']}: " + ", ".join(
+                      f"{k} {r[k]:.4e}" for k in "xyvw") for r in log),
+                  flush=True)
+        print(f"hyperclean-mnist-width {engine:5s}: {steps} steps, {syncs} "
+              f"syncs, launches {counts}; first round "
+              f"{res.compile_seconds:.3f} s; steady {steady_ms(drv):.2f} "
+              f"ms/round over {len(drv.round_seconds)} rounds; peak "
+              f"{peak_gib(torch):.2f} GiB", flush=True)
+        finals[engine] = res.final_avg_state
+    worst = final_gap(torch, finals["scan"], finals["eager"])
+    print(f"hyperclean eager vs scan final state: max normwise rel err "
+          f"{worst:.3e} (limit {ENGINE_RTOL})", flush=True)
+    if not worst <= ENGINE_RTOL:
+        raise AssertionError("hyperclean: eager and scan disagree")
+    # the Neumann step must stay under 1/L_g at this width
+    states, _ = drv.init_run(0, drv.draws(q, seed=0))
+    l_g = top_eig_yy(torch, task["problem"], states, drv.batches(0))
+    print(f"hyperclean theta {HC_THETA}: L_g at init {l_g:.4f}, theta * L_g "
+          f"{HC_THETA * l_g:.3f}", flush=True)
+    if not HC_THETA * l_g <= 1.0:
+        raise AssertionError(f"hyperclean theta {HC_THETA} exceeds 1/L_g")
+    avg = finals["eager"]
+    for name in ("true_grad_norm", "val_loss"):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        value = float(task[name](avg["x"], avg["y"]))
+        dt = time.time() - t0
+        print(f"hyperclean {name} at the final state, full width: {value:.6e} "
+              f"({dt:.3f} s, peak {peak_gib(torch):.2f} GiB)", flush=True)
+        if not math.isfinite(value):
+            raise AssertionError(f"hyperclean {name} {value}")
+    diagnostic_check(torch)
+    return launches
+
+
+def diagnostic_check(torch):
+    """The exact diagnostics on the card (f32) against the CPU in float64 on
+    the same data and point, at HC_CHECK's reduced width."""
+    from repro_torch.configs import HyperCleanConfig
+    from repro_torch.tasks import build_hyperclean
+
+    cfg = HyperCleanConfig(**HC_CHECK)
+    card = build_hyperclean(cfg, device="cuda", seed=1)
+    cpu = build_hyperclean(cfg, device="cpu", data={
+        k: v.cpu() for k, v in card["data"].items()})
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    x = 0.5 * torch.randn(cfg.n_clients, cfg.n_train_per_client,
+                          generator=gen, device="cuda")
+    y = {"w": 0.1 * torch.randn(cfg.feat_dim, cfg.n_classes, generator=gen,
+                                device="cuda"),
+         "b": 0.1 * torch.randn(cfg.n_classes, generator=gen,
+                                device="cuda")}
+    y64 = {k: v.cpu().double() for k, v in y.items()}
+    for name in ("true_grad_norm", "val_loss"):
+        got = float(card[name](x, y))
+        want = float(cpu[name](x.cpu().double(), y64))
+        err = abs(got - want) / abs(want)
+        print(f"hyperclean {name} card f32 {got:.8e} vs CPU float64 "
+              f"{want:.8e} at feat {cfg.feat_dim}, {cfg.n_train_per_client} "
+              f"samples a client: rel err {err:.3e} (limit {DIAG_RTOL})",
+              flush=True)
+        if not err <= DIAG_RTOL:
+            raise AssertionError(f"hyperclean {name}: card and float64 "
+                                 f"CPU disagree")
+
+
+@contextlib.contextmanager
+def recording_async_rounds(record):
+    """Every async round the driver runs, with the flight bookkeeping
+    before and after it, appended to ``record`` as ``(round, ids, before,
+    after)``."""
+    from repro_torch.tasks import driver as drvmod
+    real = drvmod.make_async_round
+    keys = ("in_flight", "dispatch_round", "return_round")
+
+    def make(*args, **kw):
+        round_fn = real(*args, **kw)
+
+        def recorded(state, ids, batches_q, draws_q, r, u=None):
+            before = {k: state[k].clone() for k in keys}
+            state, stats = round_fn(state, ids, batches_q, draws_q, r, u)
+            record.append((r, ids.clone(), before,
+                           {k: state[k].clone() for k in keys}))
+            return state, stats
+        return recorded
+
+    drvmod.make_async_round = make
+    try:
+        yield
+    finally:
+        drvmod.make_async_round = real
+
+
+def check_no_redispatch(record):
+    """No client still in flight after a round's arrivals is dispatched
+    again: its dispatch and return rounds stay; every other cohort client
+    starts at this round. Returns the slots that found their client busy."""
+    busy_slots = 0
+    for r, ids, before, after in record:
+        busy = before["in_flight"] & (before["return_round"] > r)
+        for g in ids.tolist():
+            if busy[g]:
+                busy_slots += 1
+                if (after["dispatch_round"][g] != before["dispatch_round"][g]
+                        or after["return_round"][g]
+                        != before["return_round"][g]):
+                    raise AssertionError(f"async round {r}: client {g} was "
+                                         f"in flight and dispatched again")
+            elif not (after["in_flight"][g]
+                      and int(after["dispatch_round"][g]) == r):
+                raise AssertionError(f"async round {r}: idle client {g} "
+                                     f"was not dispatched")
+    return busy_slots
+
+
+def async_path(torch, kerns):
+    """Hyper-representation at MNIST width on an asynchronous population:
+    32 clients, cohorts of 8, tiered delays up to 8 rounds, a staleness
+    bound of 4, delay-adaptive eta, participants sync, int8 with error
+    feedback, ASYNC_ROUNDS rounds; then the degenerate setting against the
+    synchronous population path."""
+    from repro_torch.configs import PopulationConfig
+    from repro_torch.fed.sampling import UniformSampler
+    from repro_torch.tasks import FedDriver, build_hyperrep
+
+    cfg32 = mnist_width(32)
+    n_msg = sum(message_segments(cfg32))
+    task = build_hyperrep(cfg32, device="cuda")
+    fed = dataclasses.replace(cfg32.fed, codec="int8", error_feedback=True)
+    pcfg = PopulationConfig(n=32, cohort=8, sync_mode="participants",
+                            staleness_decay=0.5, max_staleness=4,
+                            max_delay=8, delay_model="tiers", delay_eta=0.5)
+    steps = ASYNC_ROUNDS * fed.q
+    drv = FedDriver(task["problem"], fed, 32, task["batch_fn"],
+                    task["init_xy"], metric_fn=task["val_loss"],
+                    population=pcfg, device="cuda")
+    record = []
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kerns)
+    with recording_async_rounds(record):
+        res = drv.run(steps, seed=0, eval_every=fed.q)
+    torch.cuda.synchronize()
+    counts = launch_counts(kerns)
+    # every round: q local steps, one server step (a round without an
+    # accepted arrival discards it), one codec round trip for the cohort
+    check_counts("async", counts, {
+        "storm_update": 2 * steps, "adafbio_update": steps + ASYNC_ROUNDS,
+        "quantize_stoch": ASYNC_ROUNDS, "dequantize": ASYNC_ROUNDS})
+    log = drv.staleness_log
+    tot = {k: sum(r[k] for r in log) for k in ("arrived", "accepted",
+                                               "dropped", "synced",
+                                               "dispatched")}
+    # every arrival bills one int8 message (levels and 10 scales), every
+    # synced row one full-precision state
+    want_bytes = (tot["arrived"] * (n_msg + 4 * 10), tot["synced"] * 4 * n_msg)
+    got_bytes = (res.bytes_up[-1], res.bytes_down[-1])
+    if got_bytes != want_bytes:
+        raise AssertionError(f"async: bytes {got_bytes}, want {want_bytes}")
+    hist = [int(v) for v in drv.staleness_hist]
+    by_tier = {t: [int(v) for v in h]
+               for t, h in sorted(drv.staleness_hist_by_tier.items())}
+    if sum(hist) != tot["accepted"] or sum(
+            sum(h) for h in by_tier.values()) != tot["accepted"]:
+        raise AssertionError(f"async: histogram {hist} / {by_tier} does not "
+                             f"sum to the {tot['accepted']} accepted")
+    busy = check_no_redispatch(record)
+    if busy == 0:
+        raise AssertionError("async: no cohort slot found its client in "
+                             "flight, so the re-dispatch check saw nothing")
+    if not all(math.isfinite(v) for v in res.metric):
+        raise AssertionError(f"async: val loss {res.metric}")
+    print(f"async-int8-tiers (N 32, C 8, tiers, max_staleness 4, max_delay "
+          f"8, delay_eta 0.5, participants, int8+EF): {ASYNC_ROUNDS} rounds, "
+          f"launches {counts}; arrivals {tot}; {busy} cohort slots found "
+          f"their client in flight and left it; staleness histogram {hist}, "
+          f"by tier {by_tier}; bytes up/down {got_bytes}; first round "
+          f"{res.compile_seconds:.3f} s; steady {steady_ms(drv):.2f} ms/round "
+          f"over {len(drv.round_seconds)} rounds; peak {peak_gib(torch):.2f} "
+          f"GiB; val loss {[round(v, 5) for v in res.metric]}", flush=True)
+
+    # degenerate: every delay one round, no gate, no delay adaptation
+    fed01 = dataclasses.replace(cfg32.fed, theta=CHECK_THETA)
+    sampler = UniformSampler(32, 8, seed=5)
+    finals = {}
+    for name, p in (("sync", PopulationConfig(n=32, cohort=8)),
+                    ("async", PopulationConfig(n=32, cohort=8,
+                                               max_staleness=math.inf))):
+        d = FedDriver(task["problem"], fed01, 32, task["batch_fn"],
+                      task["init_xy"], population=p, sampler=sampler,
+                      device="cuda")
+        finals[name] = d.run(3 * fed.q, seed=0,
+                             eval_every=3 * fed.q).final_avg_state
+    worst = final_gap(torch, finals["async"], finals["sync"])
+    print(f"degenerate async (max_delay 1, no staleness bound, delay_eta 0) "
+          f"vs sync population, theta {CHECK_THETA}, 3 rounds: max normwise "
+          f"rel err {worst:.3e} (limit {ENGINE_RTOL})", flush=True)
+    if not worst <= ENGINE_RTOL:
+        raise AssertionError("degenerate async and sync population disagree")
+    return counts
+
+
+def gossip_path(torch, kerns, task, cfg):
+    """Hyper-representation at MNIST width on the gossip engine: 8 nodes on
+    a ring, int8 with error feedback, GOSSIP_ROUNDS rounds; then the
+    complete graph without a codec against the star population engine at
+    cohort 8."""
+    from repro_torch.configs import PopulationConfig
+    from repro_torch.kernels import ops
+    from repro_torch.tasks import FedDriver
+
+    n_msg = sum(message_segments(cfg))
+    fed = dataclasses.replace(cfg.fed, codec="int8", error_feedback=True)
+    pcfg = PopulationConfig(n=8, cohort=8, topology="ring")
+    steps = GOSSIP_ROUNDS * fed.q
+    drv = FedDriver(task["problem"], fed, 8, task["batch_fn"],
+                    task["init_xy"], metric_fn=task["val_loss"],
+                    engine="gossip", population=pcfg, device="cuda")
+    real = ops.adafbio_update
+    per_row = []
+
+    def counting(p, w, a, lr_eta, rho):
+        per_row.append(a.dim() == 2)
+        return real(p, w, a, lr_eta, rho)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kerns)
+    ops.adafbio_update = counting
+    try:
+        res = drv.run(steps, seed=0, eval_every=fed.q)
+    finally:
+        ops.adafbio_update = real
+    torch.cuda.synchronize()
+    counts = launch_counts(kerns)
+    syncs = res.comms[-1]
+    # every local step and every node sync: one adafbio launch over the 8
+    # node rows, each with its own accumulator row
+    check_counts("gossip", counts, {
+        "storm_update": 2 * steps, "adafbio_update": steps + syncs,
+        "quantize_stoch": GOSSIP_ROUNDS, "dequantize": GOSSIP_ROUNDS})
+    if len(per_row) != steps + syncs or not all(per_row):
+        raise AssertionError(f"gossip: {sum(per_row)} of {len(per_row)} "
+                             f"adafbio launches took per-node accumulators")
+    edges = drv.gossip_agg.edges(0)
+    want = syncs * edges * (n_msg + 4 * 10)
+    if edges != 16 or (res.bytes_up[-1], res.bytes_down[-1]) != (want, want):
+        raise AssertionError(f"gossip: {edges} edges, bytes "
+                             f"{res.bytes_up[-1]}/{res.bytes_down[-1]}, "
+                             f"want {want} each way")
+    if not all(math.isfinite(v) for v in res.metric):
+        raise AssertionError(f"gossip: val loss {res.metric}")
+    print(f"gossip-ring-int8 (8 nodes, ring, {edges} directed edges, "
+          f"spectral gap {drv.gossip_agg.gap:.4f}, int8+EF): {GOSSIP_ROUNDS} "
+          f"rounds, launches {counts} (every adafbio launch per-node); bytes "
+          f"up/down {res.bytes_up[-1]}/{res.bytes_down[-1]}; first round "
+          f"{res.compile_seconds:.3f} s; steady {steady_ms(drv):.2f} ms/round "
+          f"over {len(drv.round_seconds)} rounds; peak {peak_gib(torch):.2f} "
+          f"GiB; val loss {[round(v, 5) for v in res.metric]}", flush=True)
+
+    fed01 = dataclasses.replace(cfg.fed, theta=CHECK_THETA)
+    finals = {}
+    for engine in ("gossip", "eager"):
+        p = (PopulationConfig(n=8, cohort=8, topology="complete")
+             if engine == "gossip" else PopulationConfig(n=8, cohort=8))
+        d = FedDriver(task["problem"], fed01, 8, task["batch_fn"],
+                      task["init_xy"], engine=engine, population=p,
+                      device="cuda")
+        finals[engine] = d.run(2 * fed.q, seed=0,
+                               eval_every=2 * fed.q).final_avg_state
+    worst = final_gap(torch, finals["gossip"], finals["eager"])
+    print(f"gossip on the complete graph vs star population at cohort 8, "
+          f"theta {CHECK_THETA}, 2 rounds: max normwise rel err {worst:.3e} "
+          f"(limit {ENGINE_RTOL})", flush=True)
+    if not worst <= ENGINE_RTOL:
+        raise AssertionError("complete-graph gossip and star disagree")
+    return counts
 
 
 def named_leaves(tree, path=""):
@@ -1565,7 +1946,7 @@ def hybrid_check(torch, ref, cfg, params, reqs):
 
 
 def adafbio_phases(torch, kern, qkern, ref, ops):
-    """Phases 3-8: the update and codec kernels against their plain
+    """Phases 3-9: the update and codec kernels against their plain
     versions, then the federated paths; returns the kernels' numbers and
     the paths' launch counts. The tasks they build are freed on return."""
     kerns = (kern, qkern)
@@ -1581,6 +1962,10 @@ def adafbio_phases(torch, kern, qkern, ref, ops):
         launches[name] = codec_launches[name] + pop_launches[name]
     broadcast_vs_masked(torch, task, cfg)
     topk_run(torch, task, cfg)
+    # the slice-6 paths (hyper-cleaning, async, gossip), each counted alone
+    for counts in (hyperclean_path(torch, kerns), async_path(torch, kerns),
+                   gossip_path(torch, kerns, task, cfg)):
+        add_counts(launches, counts)
     round_checks(torch, task, cfg)
     quadratic(torch)
     return numbers, launches
@@ -1666,8 +2051,9 @@ def main() -> int:
         "bound_ms": numbers[name]["bound_ms"],
         "bound_by": numbers[name].get("bound_by", "bytes"),
         "library_ms": numbers[name].get("library_ms"),
-        **({"cold_ms": numbers[name]["cold_ms"]}
-           if "cold_ms" in numbers[name] else {})} for name in SOURCES]
+        **{k: v for k, v in numbers[name].items()
+           if k == "cold_ms" or k.startswith("per_row_")}}
+        for name in SOURCES]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

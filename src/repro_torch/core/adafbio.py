@@ -119,12 +119,15 @@ def use_fused(fed: FedConfig, like) -> bool:
 
 def param_update(fed: FedConfig, adaptive_state, x, y, v, w, eta):
     """Eqs. (12)-(14): adaptive-preconditioned interpolated update. ``x, y,
-    v, w`` are client-stacked, or one (averaged) client's trees."""
+    v, w`` are client-stacked, or one (averaged) client's trees. A per-node
+    ``adaptive_state`` (:func:`repro_torch.core.adaptive.per_node`) holds
+    one accumulator per row of the stacked trees."""
     if use_fused(fed, x) and fed.adaptive != "none":
         from repro_torch.kernels import ops
         acc = (adaptive_state["a_max"] if fed.adaptive == "amsgrad"
                else adaptive_state["a"])
-        x_new = ops.adafbio_update_tree(x, w, acc, fed.lr_x * eta, fed.rho)
+        x_new = ops.adafbio_update_tree(x, w, acc, fed.lr_x * eta, fed.rho,
+                                        per_row=ada.per_node(adaptive_state))
     else:
         dx = ada.precondition_x(adaptive_state, w, kind=fed.adaptive,
                                 rho=fed.rho)
@@ -179,12 +182,18 @@ def sync_update(fed: FedConfig, server: Dict[str, Any],
     """Server part of the sync step (lines 5-8): regenerate (A_t, B_t) from the
     averaged estimators, then one preconditioned update on the averaged params.
     Returns (new broadcastable client state, new server state).
+
+    A per-node server bank (the gossip engine: every leaf, ``t`` included,
+    stacked on a leading node axis, ``avg_state`` the [n] mixed states) runs
+    every node's server step at once, each on its own accumulators. The
+    nodes step in lockstep, so their counters are equal and eta is read
+    from node 0's.
     """
     t = server["t"]
     adaptive_state = ada.update_adaptive(
         server["adaptive"], avg_state["w"], avg_state["v"],
         kind=fed.adaptive, varrho=fed.varrho)
-    eta = eta_t(fed, t, m)
+    eta = eta_t(fed, t.reshape(-1)[0], m)
     x_new, y_new = param_update(fed, adaptive_state, avg_state["x"],
                                 avg_state["y"], avg_state["v"], avg_state["w"],
                                 eta)

@@ -14,6 +14,11 @@ q local steps. Variants:
 B_t: b_t = ϱ b + (1−ϱ)‖v̄‖ (line 6) / ‖v̄ − v̄_prev‖ (Eq. 9). Every scalar
 stays a 0-d f32 tensor on the device, so no step waits on the host.
 ``precondition_x`` broadcasts ``a`` over a leading client axis of ``w``.
+
+A state whose ``b`` is a [n] vector is a bank of n states, one per gossip
+node (every leaf stacked on a leading node axis, the reference's
+``vmap(sync_update)``): ``update_adaptive`` then takes each node's norm of
+its own ``v̄`` row, and the preconditioners apply row by row.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.core.tree_util import (tree_leaves, tree_map, tree_norm,
-                                        tree_zeros_like)
+                                        tree_row_norm, tree_zeros_like)
 
 
 def _scalar(value: float, like) -> torch.Tensor:
@@ -43,6 +48,11 @@ def init_adaptive_state(x_like, kind: str) -> Dict[str, Any]:
     return st
 
 
+def per_node(state) -> bool:
+    """True for a bank of per-node states (``b`` a [n] vector)."""
+    return state["b"].dim() == 1
+
+
 def _ema_sq(a, w, varrho: float):
     return (varrho * a.float() + (1 - varrho) * w.float() ** 2).to(a.dtype)
 
@@ -51,7 +61,7 @@ def update_adaptive(state: Dict[str, Any], w_bar, v_bar, *, kind: str,
                     varrho: float, b_max: float = 1e3) -> Dict[str, Any]:
     """Server-side regeneration at a sync step."""
     new = dict(state)
-    vn = tree_norm(v_bar)
+    vn = tree_row_norm(v_bar) if per_node(state) else tree_norm(v_bar)
     if kind == "adam":
         new["a"] = tree_map(lambda a, w: _ema_sq(a, w, varrho),
                             state["a"], w_bar)
@@ -97,8 +107,10 @@ def precondition_x(state, w, *, kind: str, rho: float):
 
 
 def precondition_y(state, v, *, kind: str, rho: float):
-    """B_t^{-1} v = v / (b_t + ρ)."""
+    """B_t^{-1} v = v / (b_t + ρ) (a node's own b_t on each row of a
+    per-node bank)."""
     if kind == "none":
         return v
     scale = 1.0 / (state["b"] + rho)
-    return tree_map(lambda vi: (vi * scale).to(vi.dtype), v)
+    return tree_map(lambda vi: (vi * scale.reshape(
+        scale.shape + (1,) * (vi.dim() - scale.dim()))).to(vi.dtype), v)

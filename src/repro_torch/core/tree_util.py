@@ -83,6 +83,16 @@ def tree_norm(a):
     return torch.sqrt(tree_sqnorm(a))
 
 
+def tree_row_norm(a):
+    """[M] norms of the rows of a tree stacked on a leading axis: row m's
+    :func:`tree_norm`, every leaf's squares summed in f32."""
+    total = None
+    for x in tree_leaves(a):
+        sq = (x.float() ** 2).reshape(x.shape[0], -1).sum(dim=1)
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
 def tree_zeros_like(a):
     return tree_map(torch.zeros_like, a)
 

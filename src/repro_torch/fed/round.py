@@ -5,7 +5,8 @@ AdaFBiO's communication saving is structural: q local steps per sync round
 whole round over the q per-step batches and draws, stacked on a leading axis
 by :func:`stack_round_batches`. The step counter ``t`` rides in the server
 state as a device tensor, exactly as the eager loop carries it, so both
-engines see the same schedules and draws.
+engines see the same schedules and draws. The gossip engine's round
+(:func:`repro_torch.fed.topology.make_gossip_round`) takes the same shape.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Any, Callable
 
 from repro_torch.core.tree_util import tree_stack
 
-ENGINES = ("eager", "scan")
+ENGINES = ("eager", "scan", "gossip")
 
 
 def stack_round_batches(batch_fn: Callable[[int], Any], t0: int, q: int):

@@ -224,6 +224,64 @@ def save_trace(path: str, table: np.ndarray, delays=None) -> None:
             f.write(json.dumps(rec) + "\n")
 
 
+def load_delay_trace(path: str, n: int) -> np.ndarray:
+    """Parse the JSONL trace's optional per-client ``"delay"`` field into a
+    dense [horizon, n] int32 per-round delay table (the ``trace`` delay
+    model of :class:`repro_torch.fed.population.DelayModel`).
+
+    A client line may carry ``"delay": d`` (every dispatch of client ``i``
+    returns after ``d`` rounds) or ``"delay": [d0, d1, ...]`` (tiled across
+    the horizon: a dispatch at round ``r < horizon`` takes ``d[r % len(d)]``
+    rounds; past the horizon the whole trace cycles, row ``r % horizon``).
+    Clients without the field, or absent from the file, default to delay
+    1. Delays must be >= 1 round. The horizon follows :func:`load_trace`'s
+    rules (explicit ``horizon`` line, else the max up-interval end),
+    stretched to the longest delay list; a delay list longer than an
+    explicit horizon is an error. A trace with neither intervals nor a
+    horizon line gets horizon 1. Format: docs/async.md.
+    """
+    explicit = None
+    derived = 0
+    delays = {}
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            rec = json.loads(line)
+            if "horizon" in rec:
+                explicit = int(rec["horizon"])
+                if explicit < 1:
+                    raise ValueError(f"horizon must be >= 1 round, "
+                                     f"got {explicit}")
+                continue
+            i = int(rec["client"])
+            if not 0 <= i < n:
+                raise ValueError(f"trace client id {i} outside population "
+                                 f"[0, {n})")
+            for a, b in rec.get("up", []):
+                derived = max(derived, int(b))
+            if "delay" in rec:
+                d = rec["delay"]
+                seq = [int(d)] if np.ndim(d) == 0 else [int(v) for v in d]
+                if any(v < 1 for v in seq):
+                    raise ValueError(f"client {i} delays must be >= 1 "
+                                     f"round, got {seq}")
+                if seq:
+                    delays[i] = seq
+                    derived = max(derived, len(seq))
+    horizon = explicit if explicit is not None else max(derived, 1)
+    table = np.ones((horizon, n), np.int32)
+    for i, seq in delays.items():
+        if len(seq) > horizon:
+            raise ValueError(
+                f"client {i} has {len(seq)} recorded delays but the trace "
+                f"horizon is {horizon}: raise the horizon line (truncating"
+                f" would silently drop recorded delays)")
+        table[:, i] = np.resize(np.asarray(seq, np.int32), horizon)
+    return table
+
+
 @dataclasses.dataclass(frozen=True)
 class TraceFileSampler(CohortSampler):
     """Replay a recorded availability trace ([horizon, n] bool table).

@@ -7,8 +7,10 @@
 //
 // Both are bound by memory, at 16 bytes per element: storm reads three
 // f32 streams and writes one; adafbio reads p and w and writes p' (12 B),
-// and reads the shared row `a` once from device memory and then from L2 for
-// every further client row, which is the fourth stream of the bound. The
+// and reads `a`, the fourth stream. `a` is one [n] row shared by every
+// client row (row stride 0: read once from device memory, then from L2 for
+// every further client row) or one row per client (row stride n, the
+// gossip engine's per-node accumulators: 16 B per element in all). The
 // design does what a memory-bound pass can: one launch covers all M client
 // rows of the packed [M, n] buffer, each thread moves 16 bytes per load
 // (float4) where the pointers are 16-byte aligned, a grid-stride loop keeps
@@ -73,19 +75,21 @@ __global__ void storm_kernel(const float* __restrict__ gn,
   }
 }
 
-// One grid row (blockIdx.y) per client row; `a` is the same [n] row for all.
+// One grid row (blockIdx.y) per client row; client row r reads the `a` row
+// at a + r * a_stride (a_stride 0: one row shared by all; n: a row each).
 // float4 over the first n4 quads of the row, then the masked scalar tail
 // [4*n4, n). The host passes n4 = 0 unless n % 4 == 0 and every pointer is
 // 16-byte aligned (then every row start is aligned too).
 __global__ void adafbio_kernel(const float* __restrict__ p,
                                const float* __restrict__ w,
-                               const float* __restrict__ a,
+                               const float* __restrict__ a_base,
                                const float* __restrict__ lr_eta_ptr,
                                const float* __restrict__ rho_ptr,
                                float* __restrict__ out, int64_t n,
-                               int64_t n4) {
+                               int64_t n4, int64_t a_stride) {
   const float lr_eta = lr_eta_ptr[0], rho = rho_ptr[0];
   const int64_t row = (int64_t)blockIdx.y * n;
+  const float* a = a_base + (int64_t)blockIdx.y * a_stride;
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   const float4* p4 = reinterpret_cast<const float4*>(p + row);
@@ -135,20 +139,24 @@ int storm_update_f32(const float* g_new, const float* g_old, const float* est,
   return (int)cudaGetLastError();
 }
 
-// out[r, i] = p[r, i] - lr_eta[0] * w[r, i] / (sqrt(a[i]) + rho[0]) for
-// r < rows, i < n; p, w, out are [rows, n] contiguous, a is one [n] row.
+// out[r, i] = p[r, i] - lr_eta[0] * w[r, i] / (sqrt(a[r * a_stride + i])
+// + rho[0]) for r < rows, i < n; p, w, out are [rows, n] contiguous, a is
+// one [n] row (a_stride 0) or [rows, n] contiguous (a_stride n).
 int adafbio_update_f32(const float* p, const float* w, const float* a,
                        const float* lr_eta, const float* rho, float* out,
-                       int64_t rows, int64_t n, void* stream) {
+                       int64_t rows, int64_t n, int64_t a_stride,
+                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows <= 0 || n <= 0) return (int)cudaGetLastError();
   if (rows > 65535) return (int)cudaErrorInvalidValue;
+  if (a_stride != 0 && a_stride != n) return (int)cudaErrorInvalidValue;
   const int64_t cap = kMaxBlocks / rows > 0 ? kMaxBlocks / rows : 1;
   const bool vec = n % 4 == 0 && aligned16(p) && aligned16(w) &&
                    aligned16(a) && aligned16(out);
   const int64_t n4 = vec ? n / 4 : 0;
   dim3 grid(blocks_for(vec ? n4 : n, cap), (unsigned)rows);
-  adafbio_kernel<<<grid, kThreads, 0, s>>>(p, w, a, lr_eta, rho, out, n, n4);
+  adafbio_kernel<<<grid, kThreads, 0, s>>>(p, w, a, lr_eta, rho, out, n, n4,
+                                           a_stride);
   return (int)cudaGetLastError();
 }
 

@@ -44,17 +44,20 @@ def storm_update_tree(g_new, g_old, est, beta):
                                spec)
 
 
-def adafbio_update_tree(p, w, a, lr_eta, rho):
-    """Adaptive update (Eq. 14). ``a`` is one client's tree (the server's
-    accumulator); ``p`` and ``w`` are stacked on a leading client axis, or
-    are one client's tree, which runs as M = 1."""
+def adafbio_update_tree(p, w, a, lr_eta, rho, *, per_row: bool = False):
+    """Adaptive update (Eq. 14). ``p`` and ``w`` are stacked on a leading
+    client axis, or are one client's tree, which runs as M = 1. ``a`` is
+    one client's tree (the server's accumulator, shared by every row), or
+    with ``per_row`` stacked like ``p`` (one accumulator per row: the gossip
+    engine's nodes)."""
     one_row = lambda t: tree_map(lambda x: x.unsqueeze(0), t)
-    fl_a = tree_pack_stacked(one_row(a))[0][0]
-    single = tree_leaves(p)[0].dim() == tree_leaves(a)[0].dim()
+    single = not per_row and tree_leaves(p)[0].dim() == tree_leaves(a)[0].dim()
     if single:
         p, w = one_row(p), one_row(w)
     fl_p, spec = tree_pack_stacked(p)
     fl_w, _ = tree_pack_stacked(w, spec)
+    fl_a = (tree_pack_stacked(a, spec)[0] if per_row
+            else tree_pack_stacked(one_row(a))[0][0])
     device = fl_p.device
     out = adafbio_update(fl_p, fl_w, fl_a, _device_scalar(lr_eta, device),
                          _device_scalar(rho, device))

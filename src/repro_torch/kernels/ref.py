@@ -20,7 +20,8 @@ def storm_update_ref(g_new: torch.Tensor, g_old: torch.Tensor,
 def adafbio_update_ref(p: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                        lr_eta, rho) -> torch.Tensor:
     """Fused adaptive step (Eq. 14): p' = p - lr_eta * w / (sqrt(a) + rho).
-    ``a`` broadcasts against ``p`` (one row shared by every client row)."""
+    ``a`` broadcasts against ``p``: one ``[n]`` row shared by every client
+    row, or ``[M, n]``, a row per client row."""
     upd = w.float() / (torch.sqrt(a.float()) + rho)
     return (p.float() - lr_eta * upd).to(p.dtype)
 

@@ -35,7 +35,7 @@ def _library() -> ctypes.CDLL:
         lib.storm_update_f32.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, ptr]
         lib.storm_update_f32.restype = ctypes.c_int
         lib.adafbio_update_f32.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
-                                           i64, i64, ptr]
+                                           i64, i64, i64, ptr]
         lib.adafbio_update_f32.restype = ctypes.c_int
     return lib
 
@@ -101,7 +101,9 @@ def storm_update(g_new: torch.Tensor, g_old: torch.Tensor, est: torch.Tensor,
 def adafbio_update(p: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                    lr_eta, rho) -> torch.Tensor:
     """p' = p - lr_eta * w / (sqrt(a) + rho): ``p, w`` are ``[M, n]``, ``a``
-    is one ``[n]`` row shared by every client row.
+    is one ``[n]`` row shared by every client row, or ``[M, n]``, one row
+    per client row (the gossip engine's per-node accumulators). Either way
+    one launch covers all M rows.
 
     On CUDA ``lr_eta`` and ``rho`` are one-element f32 tensors on the same
     device."""
@@ -112,14 +114,16 @@ def adafbio_update(p: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     rows, n = p.shape
     _check_buffer("p", p, (rows, n))
     _check_buffer("w", w, (rows, n))
-    _check_buffer("a", a, (n,))
+    per_row = a.dim() == 2
+    _check_buffer("a", a, (rows, n) if per_row else (n,))
     _check_scalar("lr_eta", lr_eta, p.device)
     _check_scalar("rho", rho, p.device)
     out = torch.empty_like(p)
     stream = torch.cuda.current_stream(p.device).cuda_stream
     err = _library().adafbio_update_f32(
         p.data_ptr(), w.data_ptr(), a.data_ptr(), lr_eta.data_ptr(),
-        rho.data_ptr(), out.data_ptr(), rows, n, stream)
+        rho.data_ptr(), out.data_ptr(), rows, n, n if per_row else 0,
+        stream)
     _raise_on(err, "adafbio_update")
     launches["adafbio_update"] += 1
     return out

@@ -11,33 +11,52 @@ the star sync, its codec and its wire pricing from
 banks and policies from :mod:`repro_torch.fed.population` and
 :mod:`repro_torch.fed.sampling`.
 
-Two participation regimes, as in the reference:
+Three participation regimes, as in the reference:
 
   * masked (``participation`` < 1, or a ``sampler``): all M clients
     compute every step and the inactive ones hold their state; the sync
     averages the active clients of the round it closes;
   * population (``population=PopulationConfig(n, cohort)``, synchronous):
     N client states persist in a bank, a sampler picks C ids per round,
-    and only those C are computed (gather, local steps, scatter).
+    and only those C are computed (gather, local steps, scatter);
+  * async population (``population.max_staleness != 0``): overlapping
+    cohorts with delayed arrivals, bounded-staleness gating and
+    delay-adaptive eta_t (:func:`repro_torch.fed.population.
+    make_async_round`); per-round arrival statistics land in
+    ``staleness_log``, ``staleness_hist`` and, with the ``tiers`` delay
+    model, ``staleness_hist_by_tier``.
 
-Two engines for the masked path, with the reference's accounting:
-``"eager"`` calls the client step once per local step; ``"scan"`` runs each
-communication round (the sync closing the previous round, then q local
-steps) as one call. All paths track #samples (q(K+2) at init, K+2 per local
-step), #communication rounds (1 per sync) and the bytes on the wire: one
-codec-priced message up per unique transmitter and one full-precision state
-down per receiver at each sync.
+Engines, with the reference's accounting: ``"eager"`` calls the client
+step once per local step; ``"scan"`` runs each communication round (the
+sync closing the previous round, then q local steps) as one call;
+``"gossip"`` is the decentralized engine: no server, every node keeps its
+own server state and the sync is one mixing step over
+``population.topology``'s graph (:mod:`repro_torch.fed.topology`; full
+participation, ``population.cohort == n``). All paths track #samples (q(K+2)
+at init, K+2 per local step; async scales a round's increment by the
+fraction of the cohort that dispatched), #communication rounds (1 per
+sync; async counts the rounds in which an aggregation happened) and the
+bytes on the wire: one codec-priced message up per unique transmitter
+(async: per arrival, dropped ones included) and one full-precision state
+down per receiver at each sync; gossip bills one codec-priced message per
+directed edge in each direction.
+
+``track_consensus=True`` records the consensus error of every field
+(:func:`repro_torch.core.metrics.consensus_error`) before each sync of the
+eager engine in ``consensus_log``; the other engines refuse it, as the
+reference's do.
 
 Draws are inputs: the Neumann depth of each client at init and at each step
 comes from a :class:`Draws` tensor on the device (indexed by global client
 id in population mode), the int8 codec's rounding noise from a noise source
 (:class:`repro_torch.fed.compress.CodecNoise` unless the caller hands one
-in), and the cohorts from a sampler. The parity tests fill all three from
-the reference.
+in), the cohorts from a sampler, the async delays from a
+:class:`repro_torch.fed.population.DelayDraws` source and a time-varying
+gossip graph from a uniform source. The parity tests fill them from the
+reference.
 
-Not ported yet, and raising ``NotImplementedError``: an asynchronous
-``PopulationConfig`` and ``rounds_per_scan > 1`` (slice 3), and
-``track_consensus=True`` (``core/metrics.py``).
+Not ported, and raising ``NotImplementedError``: ``rounds_per_scan > 1``
+(mega-scan).
 """
 from __future__ import annotations
 
@@ -45,6 +64,7 @@ import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import device as devices
@@ -52,16 +72,22 @@ from repro_torch.configs.base import FedConfig, PopulationConfig
 from repro_torch.core.adafbio import warm_adaptive
 from repro_torch.core.baselines import Algorithm, make_algorithm
 from repro_torch.core.bilevel import BilevelProblem
+from repro_torch.core.metrics import consensus_error
 from repro_torch.core.tree_util import (tree_bcast_axis0, tree_index,
                                         tree_map, tree_mean_axis0, tree_stack)
 from repro_torch.fed.compress import (CodecNoise, codec_from_config,
                                       mask_rows, message_elements,
                                       wire_costs, zeros_ef)
-from repro_torch.fed.population import (ClientPopulation, broadcast, gather,
+from repro_torch.fed.population import (ClientPopulation, DelayDraws,
+                                        accum_staleness_hist,
+                                        accum_tier_hists, broadcast,
+                                        delay_model_from_config, gather,
+                                        init_async_state, make_async_round,
                                         scatter, staleness_weights)
 from repro_torch.fed.round import ENGINES, stack_round_batches
 from repro_torch.fed.sampling import make_sampler
-from repro_torch.fed.topology import StarAggregator
+from repro_torch.fed.topology import (GossipAggregator, StarAggregator,
+                                      make_gossip_round)
 
 
 @dataclasses.dataclass
@@ -125,6 +151,9 @@ class FedDriver:
     track_consensus: bool = False
     # "eager": one client-step call per local step.
     # "scan":  one call per communication round (repro_torch.fed.round).
+    # "gossip": the decentralized engine over population.topology's graph
+    #          (repro_torch.fed.topology); needs population= with
+    #          cohort == n
     engine: str = "eager"
     rounds_per_scan: int = 1
     device: Any = "cuda"
@@ -141,6 +170,7 @@ class FedDriver:
         self.alg: Algorithm = make_algorithm(self.algorithm, self.fed,
                                              self.problem)
         self._run_sampler = None         # set per run by _setup_sampler
+        self.consensus_log: List[Dict[str, float]] = []
         # steady-state per-round wall-clock; the first round is reported
         # separately as RunResult.compile_seconds
         self.round_seconds: List[float] = []
@@ -150,15 +180,6 @@ class FedDriver:
             raise NotImplementedError(
                 "rounds_per_scan > 1 is not ported yet: mega-scan comes "
                 "with the federated-runtime slice (slice 3)")
-        if self.track_consensus:
-            raise NotImplementedError(
-                "track_consensus=True is not ported yet: it needs "
-                "core/metrics.py (ROADMAP, what slice 1 left out)")
-        if self.population is not None and self.population.asynchronous:
-            raise NotImplementedError(
-                "an asynchronous PopulationConfig (max_staleness > 0) is not "
-                "ported yet: async rounds come with the federated-runtime "
-                "slice (slice 3)")
 
     @property
     def codec(self):
@@ -323,10 +344,15 @@ class FedDriver:
 
     def run(self, total_steps: int, seed: int = 0, eval_every: int = 10,
             draws: Optional[Draws] = None,
-            noise: Optional[Callable] = None) -> RunResult:
+            noise: Optional[Callable] = None,
+            delay_draws: Optional[Any] = None,
+            graph_draws: Optional[Callable] = None) -> RunResult:
         """Run ``total_steps`` local steps. ``draws`` defaults to
         :meth:`draws`, ``noise`` (``(round_id, ids, n) -> [C, n]``) to a
-        :class:`CodecNoise` of ``seed`` on the run's device."""
+        :class:`CodecNoise` of ``seed`` on the run's device, ``delay_draws``
+        (the async delays) to a :class:`DelayDraws` of ``seed``, and
+        ``graph_draws`` (``round_id -> [n, n]`` uniform, a time-varying
+        gossip graph) to a generator of ``population.topology_seed``."""
         self._check_ported()
         draws = draws if draws is not None else self.draws(total_steps, seed)
         if tuple(draws.init.shape) != (self.n_clients,) or (
@@ -338,9 +364,14 @@ class FedDriver:
                 f"steps {tuple(draws.steps.shape)}")
         noise = noise if noise is not None else CodecNoise(seed, self.device)
         self._setup_sampler(seed)
+        if self.engine == "gossip":
+            return self._run_gossip(total_steps, seed, eval_every, draws,
+                                    noise, graph_draws)
         if self.population is not None:
-            return self._run_population(total_steps, seed, eval_every, draws,
-                                        noise)
+            return self._run_population(
+                total_steps, seed, eval_every, draws, noise,
+                delay_draws if delay_draws is not None
+                else DelayDraws(seed, self.device))
         if self.engine == "scan":
             return self._run_scan(total_steps, seed, eval_every, draws,
                                   noise)
@@ -361,6 +392,11 @@ class FedDriver:
         for t in range(total_steps):
             rnd = t // fed.q
             if t % fed.q == 0:
+                if t > 0 and self.track_consensus:
+                    # the pre-sync client states, off the round's clock
+                    ce = consensus_error(states)
+                    self.consensus_log.append(
+                        {"step": t, **{k: float(v) for k, v in ce.items()}})
                 # the round's batches and masks are built before its clock
                 # starts, and evaluations inside the round are taken off it
                 # (_log_round)
@@ -408,6 +444,9 @@ class FedDriver:
         post-local/pre-sync like the eager loop's; only the eval granularity
         is per round instead of per step. The codec sync closing round r-1
         draws round r-1's noise, as the eager engine's does."""
+        if self.track_consensus:
+            raise ValueError("track_consensus needs engine='eager' (it reads "
+                             "pre-sync client states mid-round)")
         fed = self.alg.fed
         q = fed.q
         m = self.n_clients
@@ -506,18 +545,25 @@ class FedDriver:
         return scatter(bank, ids, cur), last_sync, ef, server
 
     def _run_population(self, total_steps: int, seed: int, eval_every: int,
-                        draws: Draws, noise) -> RunResult:
+                        draws: Draws, noise, delay_draws) -> RunResult:
         """Cohort-sampled synchronous rounds over a persistent N-client bank,
         shaped as the scan engine's: the sync that closes the PREVIOUS round,
         then this round's local steps, touching only the C sampled clients.
         With ``sync_mode='broadcast'`` and the same cohorts this is the
-        masked-participation trajectory."""
+        masked-participation trajectory. An asynchronous population runs
+        :meth:`_run_population_async`."""
+        if self.track_consensus:
+            raise ValueError("track_consensus needs the masked eager engine "
+                             "(it reads pre-sync client states mid-round)")
         pcfg = self.population
         if pcfg.n != self.n_clients:
             raise ValueError(
                 f"population.n ({pcfg.n}) must equal n_clients "
                 f"({self.n_clients}): batch_fn and init indices run over the "
                 f"population")
+        if pcfg.asynchronous:
+            return self._run_population_async(total_steps, seed, eval_every,
+                                              draws, noise, delay_draws)
         n = pcfg.n
         fed = self.alg.fed
         q = fed.q
@@ -576,3 +622,213 @@ class FedDriver:
         self.final_bank = bank
         res.final_avg_state = tree_mean_axis0(bank)
         return res
+
+    # -------------------------------------------------- gossip engine
+
+    def _gossip_local_step(self, n: int):
+        """One local step of every node of the decentralized engine: the
+        client step against each node's own adaptive matrices (the server
+        bank's [n] rows). The nodes step in lockstep, so their counters are
+        equal and the step reads node 0's; each node's counter advances."""
+        def step(states, srv_bank, batch, k, ids):
+            t = srv_bank["t"]
+            new = self.alg.local_step(states, srv_bank["adaptive"], batch, k,
+                                      t[0], n)
+            srv = dict(srv_bank)
+            srv["t"] = t + 1
+            return new, srv
+        return step
+
+    def _run_gossip(self, total_steps: int, seed: int, eval_every: int,
+                    draws: Draws, noise, graph_draws) -> RunResult:
+        """Decentralized rounds: no server. Each node keeps its own server
+        state, and the sync that opens round r is one doubly-stochastic
+        mixing step over ``population.topology``'s graph, then every node's
+        own ``sync_update`` (:mod:`repro_torch.fed.topology`). Same round
+        shape as :meth:`_run_population` (the mix closing round r-1, then q
+        local steps; round 0 has nothing to close), full participation.
+
+        Wire accounting is per directed edge: every sync, each node ships
+        one codec-priced message along each out-edge and receives one along
+        each in-edge; there is no full-precision broadcast. Time-varying
+        graphs are billed from each round's draw.
+
+        On the complete graph the Metropolis matrix is uniform, so this
+        engine follows the star population engine at cohort n."""
+        if self.track_consensus:
+            raise ValueError("track_consensus needs the masked eager engine "
+                             "(it reads pre-sync client states mid-round)")
+        pcfg = self.population
+        if pcfg is None:
+            raise ValueError(
+                "engine='gossip' needs population=PopulationConfig(...) — "
+                "the population size and topology knobs live there")
+        if pcfg.n != self.n_clients:
+            raise ValueError(
+                f"population.n ({pcfg.n}) must equal n_clients "
+                f"({self.n_clients}) — batch_fn/init indices run over the "
+                f"population")
+        if pcfg.cohort != pcfg.n:
+            raise ValueError(
+                f"the gossip engine is full-participation: every node mixes "
+                f"and steps every round, so population.cohort "
+                f"({pcfg.cohort}) must equal population.n ({pcfg.n})")
+        if pcfg.asynchronous:
+            raise ValueError("the gossip engine is synchronous — set "
+                             "population.max_staleness = 0")
+        n = pcfg.n
+        fed = self.alg.fed
+        q = fed.q
+        agg = GossipAggregator(
+            sync_update=lambda srv, avg: self.alg.sync_update(srv, avg, n),
+            n=n, topology=pcfg.topology, er_p=pcfg.er_p,
+            seed=pcfg.topology_seed, time_varying=pcfg.time_varying,
+            codec=self.codec, device=self.device, uniform=graph_draws)
+        self.gossip_agg = agg
+        pop, server = self._init_population(seed, draws)
+        bank = pop.states
+        # every node starts from the same warm-adaptive server state: the
+        # star engines' init, so round 0 coincides with theirs
+        srv_bank = tree_bcast_axis0(server, n)
+        samples = fed.q * (fed.neumann_k + 2)
+        comms = 0
+        msg_b, down_b = wire_costs(self.codec, bank)
+        bytes_up = bytes_down = 0
+        ef = zeros_ef(self.codec, bank)
+        ids = torch.arange(n, device=self.device)
+        n_msg = message_elements(bank)
+        round_fn = make_gossip_round(self._gossip_local_step(n), agg, q)
+        # static graphs price once; time-varying ones per round
+        static_edges = None if pcfg.time_varying else agg.edges(0)
+
+        full, rem = divmod(total_steps, q)
+        lengths = [q] * full + ([rem] if rem else [])
+        eval_rounds = max(eval_every // q, 1)
+        res = RunResult(self.alg.name, [], [], [], [], [], 0.0)
+        t0 = time.time()
+        t = 0
+        for r, n_steps in enumerate(lengths):
+            batches_q = stack_round_batches(self.batches, t, n_steps)
+            u = self._codec_noise(noise, r, ids, n_msg)
+            r0 = time.time()
+            bank, srv_bank, ef = round_fn(
+                bank, srv_bank, ef, batches_q, draws.steps[t:t + n_steps], r,
+                u, n_steps=n_steps, sync_first=r > 0)
+            devices.fence(self.device)
+            self._log_round(res, time.time() - r0)
+            t += n_steps
+            samples += n_steps * (fed.neumann_k + 2)
+            if r > 0:
+                comms += 1
+                edges = (static_edges if static_edges is not None
+                         else agg.edges(r - 1))
+                up, down = agg.wire_round(msg_b, down_b, edges=edges)
+                bytes_up += up
+                bytes_down += down
+            if r % eval_rounds == 0 or r == len(lengths) - 1:
+                self._record(res, bank, t - 1, samples, comms, bytes_up,
+                             bytes_down)
+        res.seconds = time.time() - t0
+        self.final_bank = bank
+        res.final_avg_state = tree_mean_axis0(bank)
+        return res
+
+    # -------------------------------------------------- async population
+
+    def _run_population_async(self, total_steps: int, seed: int,
+                              eval_every: int, draws: Draws, noise,
+                              delay_draws) -> RunResult:
+        """Asynchronous rounds over the bank: arrivals → bounded-staleness
+        gate → (delay-adaptively scaled) server step → overlapping-cohort
+        dispatch, one :func:`repro_torch.fed.population.make_async_round`
+        call a round. Per-round arrival stats land in ``staleness_log``,
+        the accepted-staleness histogram in ``staleness_hist`` (index =
+        staleness in rounds) and, with the ``tiers`` delay model, split by
+        the client's permanent tier in ``staleness_hist_by_tier``.
+
+        Sample accounting: a cohort slot whose client is still in flight is
+        masked out and its compute discarded, so a round's sample increment
+        scales by ``dispatched / cohort``. Bytes: every arrival shipped one
+        codec message (dropped ones too: the gate rejects them after
+        transmission); the rows that received the new global model each
+        take one full-precision downlink."""
+        pcfg = self.population
+        n, c = pcfg.n, pcfg.cohort
+        fed = self.alg.fed
+        q = fed.q
+        agg = self._aggregator()
+        # the permanent per-client delay quantities, drawn once
+        dm = delay_model_from_config(pcfg).resolve(delay_draws, n)
+        pop, server = self._init_population(seed, draws)
+        state = init_async_state(pop.states, server, n, codec=self.codec)
+        samples = float(fed.q * (fed.neumann_k + 2))
+        comms = 0
+        msg_b, down_b = wire_costs(self.codec, pop.states)
+        bytes_up = bytes_down = 0
+        n_msg = message_elements(pop.states)
+        self.staleness_log: List[Dict[str, float]] = []
+        self.staleness_hist = np.zeros(0, np.int64)
+        self.staleness_hist_by_tier: Dict[int, Any] = {}
+        tier_of = (dm.tiers(delay_draws, n).cpu().numpy()
+                   if pcfg.delay_model == "tiers" else None)
+        round_fn = make_async_round(
+            lambda st, srv, b, k, ids: self._local_body(st, srv, b, k), agg,
+            q, sync_mode=pcfg.sync_mode,
+            staleness_decay=pcfg.staleness_decay,
+            max_staleness=pcfg.max_staleness, max_delay=pcfg.max_delay,
+            delay_eta=pcfg.delay_eta, delay=dm, delay_draws=delay_draws,
+            codec=self.codec)
+
+        full, rem = divmod(total_steps, q)
+        lengths = [q] * full + ([rem] if rem else [])
+        eval_rounds = max(eval_every // q, 1)
+        res = RunResult(self.alg.name, [], [], [], [], [], 0.0)
+        t0 = time.time()
+        t = 0
+        for r, n_steps in enumerate(lengths):
+            ids_host = self._run_sampler.cohort(r)
+            ids = self._on_device(ids_host)
+            batches_q = tree_stack([self.batches(t + j, ids_host)
+                                    for j in range(n_steps)])
+            draws_q = draws.steps[t:t + n_steps].index_select(1, ids)
+            u = self._codec_noise(noise, r, ids, n_msg)
+            r0 = time.time()
+            state, stats = round_fn(state, ids, batches_q, draws_q, r, u)
+            devices.fence(self.device)
+            self._log_round(res, time.time() - r0)
+            row = self._note_async_round(r, stats, tier_of,
+                                         len(pcfg.tier_fracs))
+            comms += int(row["accepted"] > 0)
+            up, down = agg.wire_round(msg_b, down_b, tx=row["arrived"],
+                                      rx=row["synced"])
+            bytes_up += up
+            bytes_down += down
+            t += n_steps
+            samples += n_steps * (fed.neumann_k + 2) * row["dispatched"] / c
+            if r % eval_rounds == 0 or r == len(lengths) - 1:
+                self._record(res, state["bank"], t - 1, int(round(samples)),
+                             comms, bytes_up, bytes_down)
+        res.seconds = time.time() - t0
+        self.final_bank = state["bank"]
+        res.final_avg_state = tree_mean_axis0(state["bank"])
+        return res
+
+    def _note_async_round(self, r: int, stats, tier_of, n_tiers: int):
+        """One async round's stats on the host: the histograms and a
+        ``staleness_log`` row, which it returns."""
+        host = {k: v.cpu().numpy() for k, v in stats.items()}
+        stale = host["staleness"]
+        accepted = stale[stale >= 0]
+        if accepted.size:
+            self.staleness_hist = accum_staleness_hist(self.staleness_hist,
+                                                       accepted)
+        if tier_of is not None:
+            accum_tier_hists(self.staleness_hist_by_tier, stale, tier_of,
+                             n_tiers)
+        row = {"round": r}
+        for k in ("arrived", "accepted", "dropped", "dispatched", "synced"):
+            row[k] = int(host[k])
+        for k in ("mean_staleness", "eta_scale"):
+            row[k] = float(host[k])
+        self.staleness_log.append(row)
+        return row

@@ -50,6 +50,34 @@ def test_kernels_match_plain_versions(cuda, m, n, offset):
     assert kern.launches["adafbio_update"] == before["adafbio_update"] + 1
 
 
+@pytest.mark.parametrize("m,n,offset", [(8, 4096, 0), (1, 1001, 0),
+                                        (3, 3, 0), (2, 777, 1), (4, 1024, 1)])
+def test_per_row_adafbio_matches_plain_version(cuda, m, n, offset):
+    """``a`` as [M, n], one accumulator row per client row (the gossip
+    engine's nodes): one launch, held to the plain version and, bit for bit,
+    to a loop of the shared-row kernel over the rows."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(m * n + 1)
+
+    def buf(rows, cols):
+        flat = torch.randn(rows * cols + offset, generator=g, device=cuda)
+        return flat[offset:].view(rows, cols)
+    p, w = buf(m, n), buf(m, n)
+    a = buf(m, n).abs()
+    lr, rho = torch.full((), 0.01, device=cuda), torch.full((), 1e-4,
+                                                            device=cuda)
+    before = kern.launches["adafbio_update"]
+    got = kern.adafbio_update(p, w, a, lr, rho)
+    assert kern.launches["adafbio_update"] == before + 1
+    _close(got, ref.adafbio_update_ref(p, w, a, lr, rho))
+    loop = torch.cat([kern.adafbio_update(p[i:i + 1].contiguous(),
+                                          w[i:i + 1].contiguous(),
+                                          a[i].contiguous(), lr, rho)
+                      for i in range(m)])
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), loop.view(torch.int32))
+
+
 def test_wrappers_reject_what_the_kernel_does_not_take(cuda):
     x = torch.ones(2, 8, device=cuda)
     beta = torch.full((), 0.5, device=cuda)
@@ -60,7 +88,9 @@ def test_wrappers_reject_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         kern.storm_update(x.t().contiguous().t(), x, x, beta)
     with pytest.raises(ValueError, match="shape"):
-        kern.adafbio_update(x, x, x, beta, beta)
+        kern.adafbio_update(x, x, x[:, :4].contiguous(), beta, beta)
+    with pytest.raises(ValueError, match="shape"):
+        kern.adafbio_update(x, x, torch.ones(3, 8, device=cuda), beta, beta)
 
 
 def test_fused_auto_reaches_the_kernels(cuda):
