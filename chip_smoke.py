@@ -12,7 +12,8 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
    prints each build's seconds; counts the ``HGMMA`` (wgmma) instructions
    of the bf16 flash library with ``cuobjdump -sass`` and fails on none;
 3. kernel phase: holds each kernel against its plain PyTorch version on the
-   card: the update kernels at the main path's shape [8, 1_066_240], at
+   card: the update kernels' packed entries at the MNIST shape
+   [8, 1_066_240], at
    M = 1, at a ragged n, at a misaligned view and at n < 4 (within 1e-6),
    ``adafbio_update`` both with one shared ``a`` row and with one ``a`` row
    per client row (the gossip engine's per-node accumulators);
@@ -62,7 +63,31 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
    theta = 1 (the card held no farther from the witness than the CPU);
 9. the quadratic quickstart problem, eager and scan, with its grad-norm
    trajectory;
-10. flash phase: the prefill's attention kernel against its plain version
+10. leaf-table phase: the update kernels' leaf-table entries (one launch
+   over a table of leaves where they lie, f32 and bf16 mixed) held bit for
+   bit against the packed f32 entries (pack, kernel, cast back) and
+   against the per-leaf plain versions (KERNEL_RTOL) on mixed tables at
+   M 1 and 3 with ``a`` shared and per row, misaligned leaves and leaves of
+   1-3 elements, and on qwen1.5-4b's x tree cut to 2 layers (548 M
+   elements); then timed on the full x tree (3.56 B elements, 28.5 GB a
+   call), warm and cold (tables rebuilt, L2 flushed), beside the plain
+   version and the bound. These are rows 1-2 of the kernels line, the
+   packed entry's MNIST-shape numbers beside them (``packed_*``);
+11. lm-train-qwen1.5-4b: ``FederatedTrainer`` on qwen1.5-4b at full width
+   and depth (3.56 B x and 0.39 B y parameters, bf16 from a seed, one
+   client), launch/train.py's FedConfig (q 4, K 2), LL batch 8 x 1024, UL
+   1 x 1024, zeta_0 and Neumann batches 1 x 256: eager 8 steps and scan 2
+   rounds from the same init, batches and draws; asserts the exact launch
+   counts (storm 2 a local step, adafbio 1 a local step and 1 a sync), one
+   launch a tree-level call, finite losses and eager == scan bit for bit;
+   prints steady ms a step and a round, LL tokens/s, the model FLOP rate,
+   peak memory and the update kernels' ms inside a step;
+12. train-ckpt-serve: the port's train CLI on reduced qwen1.5-4b on the
+   card (scan, 8 steps, a checkpoint in 2 shards), ``--resume`` for one
+   more round, then the serve CLI on 4 requests from the checkpoint: the
+   bridge's params equal the saved client mean and every request is served
+   once;
+13. flash phase: the prefill's attention kernel against its plain version
    (f32 math) in the prefill's [B, S, H, D] layout: the full-width prefill
    (qwen2.5-14b: 40 heads over 8, head_dim 128, S 1536, bf16, causal), MHA
    at a ragged S 1000, MQA at granite-20b's 48 heads over 1, a sliding
@@ -72,7 +97,7 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
    ``F.scaled_dot_product_attention`` (the library yardstick, not on the
    path) beside the bound and the time before the redesign
    (``BEFORE_MS``);
-11. quant-decode phase: the int8 decode kernel against its plain version
+14. quant-decode phase: the int8 decode kernel against its plain version
    on one layer's slice of the serve pool (B 8, H 40 over 8, W 2048,
    Dh 128), at per-row positions from 1 to 2048, MQA, a W that is not a
    multiple of the kernel's tile, a scalar position and every row in the
@@ -83,7 +108,7 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
    tick does) beside the time before the redesign; then captures the
    call in a CUDA graph and requires each replay, after q and pos change,
    to equal an eager call bit for bit;
-12. mamba-scan phase: the selective-scan kernel against its plain version,
+15. mamba-scan phase: the selective-scan kernel against its plain version,
    y and the f32 last state at tol * (1 + |plain|) (1e-5 f32, 2e-2 bf16):
    the full-width prefill (B 1, S 1536, Di 8192, N 16, B and C column
    views of the [1, 1536, 288] projection), B 2 at S 1024, a ragged Di
@@ -91,31 +116,31 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
    bound (the larger of bytes over 3.35 TB/s and the exponentials over the
    special-function units' rate at the card's clock) and the time before
    the redesign;
-13. serve phase: qwen2.5-14b at full width (48 layers, bf16, 14.8 B params
+16. serve phase: qwen2.5-14b at full width (48 layers, bf16, 14.8 B params
    from a seeded generator) through ``Engine(slots=8, max_len=2048,
    kv_quant=True)`` replaying 16 requests of 256, 1024 and 1536 prompt
    tokens: 48 flash launches per admission and 48 int8-decode launches per
    tick, req/s, tok/s, latency, steady prefill and tick times;
-14. serve check: with the same weights, two requests' prefill logits and 8
+17. serve check: with the same weights, two requests' prefill logits and 8
    teacher-forced decode ticks, every path starting each tick from one
    int8 pool, through the kernels against the plain versions: in bf16 beside
    the reference's own path as a witness of bf16 noise, then with the
    weights widened to f32 against a limit that a one-key fault (the
    control) exceeds; and the greedy-token agreement;
-15. ssm serve phase: falcon-mamba-7b at full width (64 layers, bf16, 7.3 B
+18. ssm serve phase: falcon-mamba-7b at full width (64 layers, bf16, 7.3 B
    params) through ``Engine(slots=8, max_len=2048)`` on the same 16
    requests: 64 mamba_scan launches per admission and no other kernel;
-16. ssm check: prefill logits and 8 decode ticks through the scan kernel
+19. ssm check: prefill logits and 8 decode ticks through the scan kernel
    against its plain version, in bf16 beside the reference's chunked scan
    as a witness, then in f32 against a limit that a one-step scan fault
    (the state zeroed before the prompt's last 64 steps) exceeds;
-17. hybrid serve phase: zamba2-1.2b at full width (38 mamba2 layers and
+20. hybrid serve phase: zamba2-1.2b at full width (38 mamba2 layers and
    the shared attention block after each 6) on 8 of the requests: 6 flash
    launches per admission; then its f32 prefill logits at each prompt
    length through the kernel path against the plain path, within a limit
    that a one-key fault (the control) exceeds, and against the reference
    path where it takes the prompt;
-18. one JSON line with every kernel's numbers, then the result line
+21. one JSON line with every kernel's numbers, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Every phase either passes or raises, and the script exits nonzero.
@@ -295,6 +320,32 @@ GOSSIP_ROUNDS = 4
 # factor, so the comparison runs at CHECK_THETA.
 
 
+# The LM slice (lm_train_phase): the trainer on qwen1.5-4b at full width
+# and depth, with launch/train.py's FedConfig and one client; per step an
+# LL batch of 8 x 1024 tokens, a UL batch of 1 x 1024, zeta_0 and K = 2
+# Neumann batches of 1 x 256, microbatch 1
+LM_ARCH = "qwen1.5-4b"
+LM_SEQ, LM_BATCH = 1024, 8
+LM_FED = dict(q=4, neumann_k=2, lr_x=1e-2, lr_y=1e-1)
+LM_STEPS = 8                   # eager 8 steps; scan 2 rounds of q = 4
+# the leaf-table entries against the packed f32 entries and the per-leaf
+# plain versions (leaf_table_phase): qwen1.5-4b's x tree cut to this depth
+LEAF_CUT_LAYERS = 2
+# mixed f32/bf16 leaf tables: (rows, [(elements a row, dtype, offset in
+# elements of the leaf's start from its allocation)]); an offset of 1
+# leaves the operands off 16-byte alignment
+LEAF_CASES = [
+    ("mixed M=1", 1, [(4096, "bfloat16", 0), (1000, "float32", 0),
+                      (1, "bfloat16", 0), (2, "float32", 0),
+                      (3, "bfloat16", 0), (65_541, "bfloat16", 0)]),
+    ("mixed M=3", 3, [(4096, "bfloat16", 0), (1000, "float32", 0),
+                      (1, "bfloat16", 0), (2, "float32", 0),
+                      (3, "bfloat16", 0), (65_541, "bfloat16", 0)]),
+    ("misaligned", 2, [(4096, "bfloat16", 1), (1001, "float32", 1),
+                       (8, "bfloat16", 3), (2560, "float32", 0)])]
+COLD_FLUSH_BYTES = 128 * 2 ** 20   # written before each cold call: > L2
+
+
 def gpu_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -303,15 +354,18 @@ def gpu_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps=30, warmup=3):
+def time_ms(torch, fn, reps=30, warmup=3, before=None):
     """Median per-call device time of ``fn`` with CUDA events. A spin
     kernel of QUEUE_FILL_CYCLES is queued before each timed call, so the
     card is still busy while the host issues the call and the events see
-    its device work alone."""
+    its device work alone. ``before``, if given, runs ahead of each timed
+    call, outside the events (a cache flush)."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
+        if before is not None:
+            before()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(QUEUE_FILL_CYCLES)
@@ -974,20 +1028,21 @@ def gossip_path(torch, kerns, task, cfg):
     drv = FedDriver(task["problem"], fed, 8, task["batch_fn"],
                     task["init_xy"], metric_fn=task["val_loss"],
                     engine="gossip", population=pcfg, device="cuda")
-    real = ops.adafbio_update
+    real = ops.adafbio_update_leaves
     per_row = []
 
     def counting(p, w, a, lr_eta, rho):
-        per_row.append(a.dim() == 2)
+        # a per-node accumulator leaf has its p leaf's [n, ...] shape
+        per_row.append(all(ai.shape == pi.shape for pi, ai in zip(p, a)))
         return real(p, w, a, lr_eta, rho)
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches(kerns)
-    ops.adafbio_update = counting
+    ops.adafbio_update_leaves = counting
     try:
         res = drv.run(steps, seed=0, eval_every=fed.q)
     finally:
-        ops.adafbio_update = real
+        ops.adafbio_update_leaves = real
     torch.cuda.synchronize()
     counts = launch_counts(kerns)
     syncs = res.comms[-1]
@@ -1945,6 +2000,466 @@ def hybrid_check(torch, ref, cfg, params, reqs):
                              f"zeroed key")
 
 
+def x_tree(torch, cfg, gen, n_layers=None):
+    """qwen1.5-4b's x tree (its backbone leaves: bf16, the norms f32) as
+    normal draws on the card, cut to ``n_layers`` if given."""
+    from repro_torch.core.tree_util import tree_map
+    from repro_torch.models import model_specs
+    from repro_torch.models.params import torch_dtype
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+
+    def make(spec):
+        t = torch.empty(spec.shape, device="cuda",
+                        dtype=torch_dtype(spec.dtype or cfg.dtype))
+        return t.normal_(generator=gen)
+    return tree_map(make, model_specs(cfg)["x"])
+
+
+def bits(torch, t):
+    """A tensor's raw bits (bit-for-bit comparisons)."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def leaves_equal(torch, got, want):
+    return all(g.dtype == w.dtype and torch.equal(bits(torch, g),
+                                                  bits(torch, w))
+               for g, w in zip(got, want))
+
+
+def leaves_err(torch, got, want):
+    """(max abs error, its limit) of leaf lists: KERNEL_RTOL relative to
+    the largest plain value, as the packed kernels are held."""
+    err = max((g.float() - w.float()).abs().max().item()
+              for g, w in zip(got, want))
+    top = max(w.float().abs().max().item() for w in want)
+    return err, KERNEL_RTOL * max(1.0, top)
+
+
+def packed_storm(torch, kern, gn, go, est, beta):
+    """The packed route: pack to [M, n] f32, the packed kernel, unpack to
+    est's dtypes."""
+    from repro_torch.core.tree_util import (tree_pack_stacked,
+                                            tree_unpack_stacked)
+    fl_e, spec = tree_pack_stacked(est)
+    out = kern.storm_update(tree_pack_stacked(gn, spec)[0],
+                            tree_pack_stacked(go, spec)[0], fl_e, beta)
+    return tree_unpack_stacked(out, spec)
+
+
+def packed_adafbio(torch, kern, p, w, a, lr, rho, per_row):
+    from repro_torch.core.tree_util import (tree_pack_stacked,
+                                            tree_unpack_stacked)
+    fl_p, spec = tree_pack_stacked(p)
+    fl_a = (tree_pack_stacked(a, spec)[0] if per_row else
+            tree_pack_stacked([x.unsqueeze(0) for x in a])[0][0])
+    out = kern.adafbio_update(fl_p, tree_pack_stacked(w, spec)[0], fl_a, lr,
+                              rho)
+    return tree_unpack_stacked(out, spec)
+
+
+def check_leaf_entries(torch, kern, ref, label, gn, go, est, p, w, a_shared,
+                       a_rows, scalars):
+    """The leaf-table entries against the packed f32 entries (bit for bit)
+    and the per-leaf plain versions (KERNEL_RTOL) on one leaf table;
+    returns the worst error against the plain versions."""
+    beta, lr, rho = scalars
+    worst = 0.0
+    calls = [
+        ("storm_update",
+         lambda: kern.storm_update_leaves(gn, go, est, beta),
+         lambda: packed_storm(torch, kern, gn, go, est, beta),
+         lambda: [ref.storm_update_ref(*t, beta)
+                  for t in zip(gn, go, est)]),
+        ("adafbio_update",
+         lambda: kern.adafbio_update_leaves(p, w, a_shared, lr, rho),
+         lambda: packed_adafbio(torch, kern, p, w, a_shared, lr, rho, False),
+         lambda: [ref.adafbio_update_ref(*t, lr, rho)
+                  for t in zip(p, w, a_shared)])]
+    if a_rows is not None:
+        calls.append((
+            "adafbio_update per-row",
+            lambda: kern.adafbio_update_leaves(p, w, a_rows, lr, rho),
+            lambda: packed_adafbio(torch, kern, p, w, a_rows, lr, rho, True),
+            lambda: [ref.adafbio_update_ref(*t, lr, rho)
+                     for t in zip(p, w, a_rows)]))
+    for name, leaves, packed, plain in calls:
+        before = dict(kern.launches)
+        got = leaves()
+        launched = {k: kern.launches[k] - before[k] for k in before}
+        want_p, want = packed(), plain()
+        torch.cuda.synchronize()
+        key = name.split()[0]
+        if launched[key] != 1:
+            raise AssertionError(f"{name} {label}: {launched[key]} launches "
+                                 f"for {len(got)} leaves, want 1")
+        same = leaves_equal(torch, got, want_p)
+        err, limit = leaves_err(torch, got, want)
+        worst = max(worst, err)
+        print(f"kernel {name:22s} leaf table {label:14s} {len(got)} leaves, "
+              f"{sum(t.numel() for t in got):,} elements: bit-equal to the "
+              f"packed entry {same}; max_abs_err {err:.3e} against the "
+              f"plain version (limit {limit:.1e}), bit-equal "
+              f"{leaves_equal(torch, got, want)}", flush=True)
+        if not same or not err <= limit:
+            raise AssertionError(f"{name} leaf table disagrees at {label}")
+    return worst
+
+
+def leaf_table_phase(torch, kern, ref):
+    """The leaf-table entries of kernels 1-2: held bit for bit against the
+    packed f32 entries and against the per-leaf plain versions on mixed
+    f32/bf16 tables (M 1 and 3, ``a`` shared and per row, misaligned
+    leaves, leaves of 1-3 elements) and on qwen1.5-4b's x tree cut to
+    LEAF_CUT_LAYERS layers; then timed on the full x tree (3.56 B
+    elements), warm and cold, beside the plain version and the bound.
+    Returns the kernels' numbers for the ``kernels`` line."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree_util import tree_leaves
+    from repro_torch.kernels import storm_update as kmod
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    scalars = (torch.full((), 0.3, device=dev),
+               torch.full((), 0.01, device=dev),
+               torch.full((), 1e-4, device=dev))
+    worst = 0.0
+    for label, m, leaf_specs in LEAF_CASES:
+        def leaf(n, dtype, off, rows=m):
+            flat = torch.randn(rows * n + off, generator=gen, device=dev)
+            return flat.to(getattr(torch, dtype))[off:].view(rows, n)
+        ops5 = [[leaf(*sp) for sp in leaf_specs] for _ in range(5)]
+        a_sh = [leaf(n, dt, off, 1)[0].abs_() for n, dt, off in leaf_specs]
+        a_rows = [leaf(*sp).abs_() for sp in leaf_specs]
+        worst = max(worst, check_leaf_entries(
+            torch, kern, ref, label, *ops5, a_sh, a_rows, scalars))
+    cfg = get_arch(LM_ARCH)
+    cut = [tree_leaves(x_tree(torch, cfg, gen, LEAF_CUT_LAYERS))
+           for _ in range(5)]
+    a_cut = [t.abs() for t in tree_leaves(x_tree(torch, cfg, gen,
+                                                 LEAF_CUT_LAYERS))]
+    worst = max(worst, check_leaf_entries(
+        torch, kern, ref, f"{LM_ARCH} x/{LEAF_CUT_LAYERS}L",
+        *[[t.unsqueeze(0) for t in c] for c in cut], a_cut, None,
+        scalars))
+    del cut, a_cut
+    free_device_memory(torch)
+
+    # the full x tree, one client: g_new/p, g_old/w and est/a
+    trees = [tree_leaves(x_tree(torch, cfg, gen)) for _ in range(3)]
+    trees[2] = [t.abs_() for t in trees[2]]
+    n_el = sum(t.numel() for t in trees[0])
+    nbytes = sum(4 * t.numel() * t.element_size() for t in trees[0])
+    flush = torch.empty(COLD_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    beta, lr, rho = scalars
+    entries = {
+        "storm_update": (
+            lambda: kern.storm_update_leaves(*trees, beta),
+            lambda: [ref.storm_update_ref(*t, beta) for t in zip(*trees)]),
+        "adafbio_update": (
+            lambda: kern.adafbio_update_leaves(*trees, lr, rho),
+            lambda: [ref.adafbio_update_ref(*t, lr, rho)
+                     for t in zip(*trees)])}
+    numbers = {}
+    for name, (fast, plain) in entries.items():
+        err, limit = leaves_err(torch, fast(), plain())
+        ms = time_ms(torch, fast)
+
+        def evict():
+            kmod._info_table.cache_clear()
+            flush.zero_()
+        cold_ms = time_ms(torch, fast, reps=5, warmup=0, before=evict)
+        plain_ms = time_ms(torch, plain, reps=5, warmup=1)
+        numbers[name] = dict(ms=ms, cold_ms=cold_ms, plain_ms=plain_ms,
+                             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                             max_abs_err=max(worst, err), bytes=nbytes,
+                             elements=n_el)
+        print(f"kernel {name:22s} leaf table {LM_ARCH} full x tree "
+              f"({len(trees[0])} leaves, {n_el:,} elements, {nbytes:,} "
+              f"bytes): max_abs_err {err:.3e} (limit {limit:.1e}); kernel "
+              f"{ms:.4f} ms warm, {cold_ms:.4f} ms cold (tables rebuilt, L2 "
+              f"flushed); plain {plain_ms:.4f} ms; bound "
+              f"{numbers[name]['bound_ms']:.4f} ms", flush=True)
+        if not err <= limit:
+            raise AssertionError(f"{name} leaf table disagrees on the full "
+                                 f"x tree")
+    del trees, flush
+    free_device_memory(torch)
+    return numbers
+
+
+class KernelCalls:
+    """Counts the tree-level calls of the update kernels and times each on
+    the card with CUDA events around it (the launch inside it and its
+    argument checks), while in a ``with`` block."""
+
+    NAMES = {"storm_update": "storm_update_tree",
+             "adafbio_update": "adafbio_update_tree"}
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.events = {k: [] for k in self.NAMES}
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.real = ops, {}
+        for name, attr in self.NAMES.items():
+            real = self.real[name] = getattr(ops, attr)
+
+            def timed(*a, _real=real, _name=name, **kw):
+                start = self.torch.cuda.Event(enable_timing=True)
+                end = self.torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = _real(*a, **kw)
+                end.record()
+                self.events[_name].append((start, end))
+                return out
+            setattr(ops, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, attr in self.NAMES.items():
+            setattr(self.ops, attr, self.real[name])
+
+    def calls(self):
+        return {k: len(v) for k, v in self.events.items()}
+
+    def ms(self):
+        self.torch.cuda.synchronize()
+        return {k: sum(s.elapsed_time(e) for s, e in v)
+                for k, v in self.events.items()}
+
+
+def lm_step_flops(cfg, fed, seq, batch):
+    """Model FLOPs of one local step (2 per multiply-add), from the shapes:
+    a forward is the projections (2 d_in d_out a token a layer), the
+    attention's two products over the full S x S (attend_full computes the
+    masked half too) and the head; a backward to the weights and inputs is
+    twice a forward. Per step: the LL gradient in y at the new and old
+    params (backbone forward, head forward and its weight gradient); two
+    hypergradients, each the UL gradient in (x, y) (forward and backward),
+    the Neumann batches' features (forwards) with their head products (4
+    head passes a Neumann iteration) and the mixed term on zeta_0 (forward
+    and backward, three head passes)."""
+    d, L, V = cfg.d_model, cfg.n_layers, cfg.vocab
+    hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    layer = 2 * (d * H * hd + 2 * d * KV * hd + H * hd * d + 3 * d * cfg.d_ff)
+
+    def backbone(tokens, s):
+        return tokens * L * (layer + 2 * 2 * s * H * hd)
+
+    def head(tokens):
+        return 2 * d * V * tokens
+
+    s, sn = seq, max(seq // 4, 64)
+    bf = max(int(batch * fed.ul_batch_frac), 1)
+    bn, K = fed.neumann_batch, fed.neumann_k
+    gy = backbone(batch * s, s) + 2 * head(batch * (s - 1))
+    hg = (3 * (backbone(bf * s, s) + head(bf * (s - 1)))
+          + K * backbone(bn * sn, sn) + 4 * (K - 1) * head(bn * (sn - 1))
+          + 3 * backbone(bn * sn, sn) + 3 * head(bn * (sn - 1)))
+    return 2 * gy + 2 * hg
+
+
+def lm_train_phase(torch, kerns, seq=LM_SEQ):
+    """lm-train-qwen1.5-4b: FederatedTrainer on qwen1.5-4b at full width and
+    depth (3.56 B x and 0.39 B y parameters, bf16 from a seed), eager for
+    LM_STEPS local steps and scan for LM_STEPS / q rounds from the same
+    init, batches and Neumann draws: exact launch counts (storm 2 a local
+    step, adafbio 1 a local step and 1 a sync), one launch a tree-level
+    call, finite losses, eager == scan leaf by leaf; prints steady ms a
+    step and a round, LL tokens/s, the model FLOP rate, peak memory and the
+    two kernels' ms inside a step. Returns the launches of both engines."""
+    from repro_torch import device as devlib
+    from repro_torch.configs import FedConfig, ShapeConfig, get_arch
+    from repro_torch.core.tree_util import tree_leaves, tree_map, tree_stack
+    from repro_torch.data.synthetic import (FederatedLMData, TorchLMDraws,
+                                            make_client_batch)
+    from repro_torch.fed.runtime import (FederatedTrainer, NeumannDraws,
+                                         client_batch_specs)
+    from repro_torch.launch.train import PARAM_SALT, server_step
+    from repro_torch.models import model_specs, param_count
+
+    cfg = get_arch(LM_ARCH)
+    fed = FedConfig(**LM_FED)
+    shape = ShapeConfig("cli", seq, LM_BATCH, "train")
+    tr = FederatedTrainer(cfg, fed, shape, device="cuda")
+    specs = client_batch_specs(cfg, shape, tr.m, fed)
+    data = FederatedLMData(vocab=cfg.vocab, n_clients=tr.m,
+                           draws=TorchLMDraws(0, "cuda"))
+    depths = NeumannDraws(0, fed.neumann_k, tr.m, "cuda")
+    batches = [make_client_batch(data, cfg, specs, t, "cuda")
+               for t in range(LM_STEPS)]
+    ks = [depths.step(server_step(t, fed.q)) for t in range(LM_STEPS)]
+    pspecs = model_specs(cfg)
+    print(f"lm-train-{LM_ARCH}: x {param_count(pspecs['x']):,} and y "
+          f"{param_count(pspecs['y']):,} parameters, {cfg.n_layers} layers, "
+          f"batch {({k: tuple(v.shape) for k, v in specs.items()})}",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = tr.init_params(devlib.generator("cuda", 0, PARAM_SALT))
+    states, server = tr.init_states(params, batches[0], depths.init())
+    del params
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    init_host = to_host(torch, (states, server))
+    ev = tr.eval_fn()
+    flops = lm_step_flops(cfg, fed, seq, LM_BATCH)
+    ll_tokens = LM_BATCH * seq
+    q = fed.q
+
+    # eager: one call a local step, the sync before each step t % q == 0
+    local, sync = tr.local_step_fn(), tr.sync_step_fn()
+    step_s, loss_e = [], []
+    reset_launches(kerns)
+    with KernelCalls(torch) as timer:
+        for t in range(LM_STEPS):
+            if t > 0 and t % q == 0:
+                states, server = sync(states, server)
+            torch.cuda.synchronize()
+            r0 = time.time()
+            states, server = local(states, server, batches[t], ks[t])
+            torch.cuda.synchronize()
+            step_s.append(time.time() - r0)
+        loss_e.append(float(ev(states, batches[-1])))
+    counts = launch_counts(kerns)
+    syncs_e = (LM_STEPS - 1) // q
+    check_counts("lm-train eager", counts, {
+        "storm_update": 2 * LM_STEPS, "adafbio_update": LM_STEPS + syncs_e,
+        "quantize_stoch": 0, "dequantize": 0})
+    if timer.calls() != {"storm_update": counts["storm_update"],
+                         "adafbio_update": counts["adafbio_update"]}:
+        raise AssertionError(f"lm-train eager: calls {timer.calls()} and "
+                             f"launches {counts} differ")
+    kernel_ms = {k: v / LM_STEPS for k, v in timer.ms().items()}
+    launches = dict(counts)
+    # the sync the eager loop runs before step LM_STEPS, so that both
+    # engines end on a sync
+    states, server = sync(states, server)
+    eager_final = to_host(torch, (states, server))
+    del states, server
+    free_device_memory(torch)
+
+    # scan: LM_STEPS / q rounds, each q local steps and the sync
+    states, server = tree_map(lambda t: t.cuda(), init_host)
+    del init_host
+    round_fn = tr.round_step_fn()
+    round_s = []
+    peak_eager = peak_gib(torch)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kerns)
+    with KernelCalls(torch) as timer:
+        for r in range(LM_STEPS // q):
+            batch_q = tree_stack(batches[r * q:(r + 1) * q])
+            k_q = torch.stack(ks[r * q:(r + 1) * q])
+            torch.cuda.synchronize()
+            r0 = time.time()
+            states, server = round_fn(states, server, batch_q, k_q)
+            torch.cuda.synchronize()
+            round_s.append(time.time() - r0)
+    loss_s = float(ev(states, batches[-1]))
+    counts = launch_counts(kerns)
+    rounds = LM_STEPS // q
+    check_counts("lm-train scan", counts, {
+        "storm_update": 2 * LM_STEPS, "adafbio_update": LM_STEPS + rounds,
+        "quantize_stoch": 0, "dequantize": 0})
+    if timer.calls() != {"storm_update": counts["storm_update"],
+                         "adafbio_update": counts["adafbio_update"]}:
+        raise AssertionError(f"lm-train scan: calls {timer.calls()} and "
+                             f"launches {counts} differ")
+    add_counts(launches, counts)
+    peak_scan = peak_gib(torch)
+    peak = max(peak_eager, peak_scan)
+    for v in loss_e + [loss_s]:
+        if not math.isfinite(v):
+            raise AssertionError(f"lm-train: loss {loss_e} {loss_s}")
+    worst, unequal = 0.0, 0
+    got = tree_leaves((states, server))
+    want = tree_leaves(eager_final)
+    for g, w in zip(got, want):
+        w = w.to(g.device)
+        if not torch.equal(g, w):
+            unequal += 1
+            worst = max(worst, rel_err(torch, g, w))
+    steady_step = statistics.mean(step_s[1:])
+    steady_round = statistics.mean(round_s[1:])
+    print(f"lm-train-{LM_ARCH}: init {init_s:.2f} s; eager {LM_STEPS} steps "
+          f"({syncs_e} sync): steps {[round(x, 4) for x in step_s]} s, "
+          f"steady {steady_step * 1e3:.2f} ms a local step, "
+          f"{ll_tokens / steady_step:.1f} LL tokens/s, "
+          f"{flops / steady_step / 1e12:.1f} TFLOP/s of an estimated "
+          f"{flops / 1e12:.1f} TFLOP a step; scan {rounds} rounds: "
+          f"{[round(x, 4) for x in round_s]} s, steady "
+          f"{steady_round * 1e3:.2f} ms a round "
+          f"({q * ll_tokens / steady_round:.1f} LL tokens/s); kernels in "
+          f"a step: storm_update {kernel_ms['storm_update']:.3f} ms "
+          f"(2 calls), adafbio_update {kernel_ms['adafbio_update']:.3f} ms "
+          f"(1 call, and 1 a sync); peak {peak_eager:.2f} GiB eager, "
+          f"{peak_scan:.2f} GiB scan; f(x̄,ȳ) eager "
+          f"{loss_e[-1]:.5f} scan {loss_s:.5f}; eager vs scan: "
+          f"{len(got) - unequal} of {len(got)} leaves bit-equal, worst "
+          f"normwise rel err {worst:.3e}", flush=True)
+    if unequal:
+        raise AssertionError("lm-train: eager and scan final states differ")
+    del states, server, eager_final
+    free_device_memory(torch)
+    return launches, dict(step_ms=steady_step * 1e3,
+                          round_ms=steady_round * 1e3, peak_gib=peak,
+                          kernel_ms=kernel_ms)
+
+
+def train_ckpt_serve_phase(torch, kerns):
+    """train-ckpt-serve: the port's train CLI on reduced qwen1.5-4b on the
+    card (scan, 8 steps, q 4, a checkpoint in 2 shards), --resume for one
+    more round, then the serve CLI serving 4 requests from the checkpoint:
+    the bridge's params must equal the client mean of the saved state, and
+    every request must be served once. Returns the training launches."""
+    import shutil
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core.tree_util import tree_leaves, tree_mean_axis0
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+    from repro_torch.serve import load_serve_params
+
+    ckdir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    path = ckdir / "qwen1p5_4b_reduced"
+    base = ["--arch", LM_ARCH, "--reduced", "--engine", "scan", "--q", "4",
+            "--ckpt", str(path)]
+    reset_launches(kerns)
+    first = train_cli.main(base + ["--steps", "8", "--ckpt-shards", "2"])
+    second = train_cli.main(base + ["--steps", "12", "--resume"])
+    counts = launch_counts(kerns)
+    check_counts("train-ckpt-serve training", counts, {
+        "storm_update": 2 * 12, "adafbio_update": 12 + 3,
+        "quantize_stoch": 0, "dequantize": 0})
+    if (first["step"], second["step"]) != (8, 12):
+        raise AssertionError(f"train-ckpt-serve: steps {first['step']}, "
+                             f"{second['step']}")
+    cfg = reduced(get_arch(LM_ARCH))
+    params, info = load_serve_params(path, cfg, device="cuda")
+    want = tree_mean_axis0(second["states"])
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(params), tree_leaves({"x": want["x"], "y": want["y"]})))
+    done = serve_cli.main(["--arch", LM_ARCH, "--reduced", "--ckpt",
+                           str(path), "--requests", "4", "--max-len", "64",
+                           "--prompt-lens", "8,16,32"])
+    rids = sorted(c.rid for c in done)
+    print(f"train-ckpt-serve: trained to step {second['step']} (resumed at "
+          f"8), bridge layout {info['layout']} step {info['step']}, params "
+          f"equal to the saved client mean {same}; served "
+          f"{len(done)} requests {rids}", flush=True)
+    shutil.rmtree(ckdir, ignore_errors=True)
+    if not same or info["step"] != 12:
+        raise AssertionError("train-ckpt-serve: the bridge's params are not "
+                             "the saved state's client mean")
+    if rids != list(range(4)):
+        raise AssertionError(f"train-ckpt-serve: served {rids}, want each "
+                             f"of 4 requests once")
+    return counts
+
+
 def adafbio_phases(torch, kern, qkern, ref, ops):
     """Phases 3-9: the update and codec kernels against their plain
     versions, then the federated paths; returns the kernels' numbers and
@@ -2012,6 +2527,21 @@ def main() -> int:
 
     numbers, launches = adafbio_phases(torch, kern, qkern, ref, ops)
     free_device_memory(torch)
+    # rows 1-2 of the kernels line: the leaf-table entry on this slice's
+    # main path (qwen1.5-4b's x tree), the packed entry at the MNIST shape
+    # beside it
+    for name, row in leaf_table_phase(torch, kern, ref).items():
+        packed = numbers[name]
+        numbers[name] = {**{f"packed_{k}": packed[k] for k in (
+            "ms", "plain_ms", "bound_ms", "max_abs_err")},
+            **{k: v for k, v in packed.items() if k.startswith("per_row_")},
+            **row}
+    lm_counts, lm = lm_train_phase(torch, (kern, qkern))
+    add_counts(launches, lm_counts)
+    for name, ms in lm["kernel_ms"].items():
+        numbers[name]["lm_step_ms"] = ms
+    add_counts(launches, train_ckpt_serve_phase(torch, (kern, qkern)))
+    free_device_memory(torch)
     numbers.update(flash_phase(torch, fkern, ref))
     numbers.update(quant_decode_phase(torch, qd, ref))
     numbers.update(mamba_scan_phase(torch, mk, ref))
@@ -2052,7 +2582,8 @@ def main() -> int:
         "bound_by": numbers[name].get("bound_by", "bytes"),
         "library_ms": numbers[name].get("library_ms"),
         **{k: v for k, v in numbers[name].items()
-           if k == "cold_ms" or k.startswith("per_row_")}}
+           if k in ("cold_ms", "elements", "lm_step_ms")
+           or k.startswith(("per_row_", "packed_"))}}
         for name in SOURCES]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -58,7 +58,10 @@ def _neumann(hvp, gy, k, K: int, theta: float):
 
 
 def _grad_f_xy(problem, xp, yp, batch):
-    """(∇x f, ∇y f) in ONE backward."""
+    """(∇x f, ∇y f) in ONE backward, microbatched where the problem says
+    how (``grad_f_xy``)."""
+    if problem.grad_f_xy is not None:
+        return problem.grad_f_xy(xp, yp, batch)
     return grad(problem.f, argnums=(0, 1))(xp, yp, batch)
 
 

@@ -98,8 +98,9 @@ def tree_zeros_like(a):
 
 
 def tree_mean_axis0(a):
-    """Mean over a leading (client) axis on every leaf."""
-    return tree_map(lambda x: x.mean(dim=0), a)
+    """Mean over a leading (client) axis on every leaf. The mean of one row
+    is that row, a view (no copy of a model-sized leaf)."""
+    return tree_map(lambda x: x[0] if x.shape[0] == 1 else x.mean(dim=0), a)
 
 
 def tree_bcast_axis0(a, m: int):

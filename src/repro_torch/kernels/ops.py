@@ -1,14 +1,18 @@
 """Tree-level wrappers around the fused update kernels.
 
-The flat-buffer path: pack a client-stacked tree into one ``[M, n]`` f32
-buffer (:func:`repro_torch.core.tree_util.tree_pack_stacked`), run the fused
-kernel once over all M client rows, and unpack, casting back to each leaf's
-dtype. Where the kernel runs follows the tensors' device
+The update kernels run over a tree's leaves where they lie: one launch of
+the leaf-table entry (:func:`repro_torch.kernels.storm_update.
+storm_update_leaves`, :func:`~repro_torch.kernels.storm_update.
+adafbio_update_leaves`) covers every leaf and every client row, f32 and
+bf16 leaves mixed, with no packed f32 copy of the tree (at language-model
+width one such copy of the backbone is 14 GB). The values are those of
+packing into one ``[M, n]`` f32 buffer, the packed kernel and casting back
+to each leaf's dtype. Where the kernel runs follows the tensors' device
 (:mod:`repro_torch.kernels.storm_update`, :mod:`repro_torch.kernels.quantize`).
 
-The int8 codec's round trip runs the same way: one quantize and one
-dequantize launch over every client row and every leaf of the packed
-message, with one scale per (client, leaf).
+The int8 codec's round trip works on the packed message (f32, one row a
+client): one quantize and one dequantize launch over every client row and
+every leaf, with one scale per (client, leaf).
 """
 from __future__ import annotations
 
@@ -19,10 +23,11 @@ from typing import Tuple
 import torch
 
 from repro_torch import device as devices
-from repro_torch.core.tree_util import (TreeBufferSpec, tree_leaves, tree_map,
-                                        tree_pack_stacked, tree_unpack_stacked)
+from repro_torch.core.tree_util import (TreeBufferSpec, tree_leaves,
+                                        tree_structure, tree_unflatten)
 from repro_torch.kernels.quantize import dequantize, quantize_stoch
-from repro_torch.kernels.storm_update import adafbio_update, storm_update
+from repro_torch.kernels.storm_update import (adafbio_update_leaves,
+                                              storm_update_leaves)
 
 
 def _device_scalar(s, device) -> torch.Tensor:
@@ -33,36 +38,34 @@ def _device_scalar(s, device) -> torch.Tensor:
     return torch.full((), float(s), dtype=torch.float32, device=device)
 
 
+def _dense_leaves(tree):
+    """The leaves, each contiguous (the kernels read a leaf as one run of
+    elements; a strided view, such as a vmapped output, is copied)."""
+    return [t.contiguous() for t in tree_leaves(tree)]
+
+
 def storm_update_tree(g_new, g_old, est, beta):
     """STORM refresh (Eqs. 10-11) over trees stacked on a leading client
-    axis. Output leaves take ``est``'s dtypes (the estimator refreshed)."""
-    fl_est, spec = tree_pack_stacked(est)
-    fl_new, _ = tree_pack_stacked(g_new, spec)
-    fl_old, _ = tree_pack_stacked(g_old, spec)
-    beta = _device_scalar(beta, fl_est.device)
-    return tree_unpack_stacked(storm_update(fl_new, fl_old, fl_est, beta),
-                               spec)
+    axis (or one client's trees). Output leaves take ``est``'s dtypes (the
+    estimator refreshed)."""
+    est_l = _dense_leaves(est)
+    out = storm_update_leaves(_dense_leaves(g_new), _dense_leaves(g_old),
+                              est_l, _device_scalar(beta, est_l[0].device))
+    return tree_unflatten(tree_structure(est), out)
 
 
-def adafbio_update_tree(p, w, a, lr_eta, rho, *, per_row: bool = False):
+def adafbio_update_tree(p, w, a, lr_eta, rho):
     """Adaptive update (Eq. 14). ``p`` and ``w`` are stacked on a leading
-    client axis, or are one client's tree, which runs as M = 1. ``a`` is
-    one client's tree (the server's accumulator, shared by every row), or
-    with ``per_row`` stacked like ``p`` (one accumulator per row: the gossip
-    engine's nodes)."""
-    one_row = lambda t: tree_map(lambda x: x.unsqueeze(0), t)
-    single = not per_row and tree_leaves(p)[0].dim() == tree_leaves(a)[0].dim()
-    if single:
-        p, w = one_row(p), one_row(w)
-    fl_p, spec = tree_pack_stacked(p)
-    fl_w, _ = tree_pack_stacked(w, spec)
-    fl_a = (tree_pack_stacked(a, spec)[0] if per_row
-            else tree_pack_stacked(one_row(a))[0][0])
-    device = fl_p.device
-    out = adafbio_update(fl_p, fl_w, fl_a, _device_scalar(lr_eta, device),
-                         _device_scalar(rho, device))
-    out = tree_unpack_stacked(out, spec)
-    return tree_map(lambda x: x[0], out) if single else out
+    client axis, or are one client's tree. ``a`` is one client's tree (the
+    server's accumulator, shared by every row), or stacked like ``p`` (one
+    accumulator per row: the gossip engine's nodes); each leaf's shape says
+    which. Output leaves take ``p``'s dtypes."""
+    p_l, w_l, a_l = _dense_leaves(p), _dense_leaves(w), _dense_leaves(a)
+    device = p_l[0].device
+    out = adafbio_update_leaves(p_l, w_l, a_l,
+                                _device_scalar(lr_eta, device),
+                                _device_scalar(rho, device))
+    return tree_unflatten(tree_structure(p), out)
 
 
 # ------------------------------------------------------------ int8 codec

@@ -17,12 +17,22 @@ def storm_update_ref(g_new: torch.Tensor, g_old: torch.Tensor,
     return out.to(est.dtype)
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root, as the kernels' __fsqrt_rn and
+    XLA compute it. PyTorch's CUDA sqrt is; its CPU kernel misses by one ulp
+    on some inputs, so on the CPU the root goes through f64 (rounding that
+    back to f32 is exact: 53 >= 2 * 24 + 2 bits)."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
 def adafbio_update_ref(p: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                        lr_eta, rho) -> torch.Tensor:
     """Fused adaptive step (Eq. 14): p' = p - lr_eta * w / (sqrt(a) + rho).
     ``a`` broadcasts against ``p``: one ``[n]`` row shared by every client
     row, or ``[M, n]``, a row per client row."""
-    upd = w.float() / (torch.sqrt(a.float()) + rho)
+    upd = w.float() / (sqrt_rn(a.float()) + rho)
     return (p.float() - lr_eta * upd).to(p.dtype)
 
 

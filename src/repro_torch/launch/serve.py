@@ -8,16 +8,21 @@ CUDA card.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
         --slots 8 --max-len 2048 --requests 16 --prompt-lens 256,1024,1536
 
-serves seed-initialized params (the weights' values do not change the
-work): the dense family (qwen2.5-14b, qwen1.5-4b, granite-20b), the ssm
-family (falcon-mamba-7b, its prefill on the ``mamba_scan`` kernel) and the
-hybrid family (zamba2-1.2b); ``--kv-quant`` needs an attention KV cache,
-so the ssm and hybrid families refuse it. ``--device cpu`` runs the plain
-PyTorch paths on the CPU, for a ``--reduced`` model. The flags are the JAX
-launcher's; those that need a part of the port still to come raise and
-name it: ``--ckpt`` (the checkpoint bridge reads the LM trainer's state,
-the LM-training slice), ``--mesh local`` (the sharding slice),
-``--metrics-out`` (the obs/ slice).
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \
+        --reduced --ckpt build/ck --requests 4
+
+serves the global model of a training checkpoint (``--ckpt``, written by
+either package's train launcher, dense or sharded; ``--codec`` names the
+training run's codec for EF-bank layouts; ``repro_torch.serve.bridge``
+takes the client mean), or without ``--ckpt`` seed-initialized params (the
+weights' values do not change the work): the dense family (qwen2.5-14b,
+qwen1.5-4b, granite-20b), the ssm family (falcon-mamba-7b, its prefill on
+the ``mamba_scan`` kernel) and the hybrid family (zamba2-1.2b);
+``--kv-quant`` needs an attention KV cache, so the ssm and hybrid families
+refuse it. ``--device cpu`` runs the plain PyTorch paths on the CPU, for a
+``--reduced`` model. The flags are the JAX launcher's; those that need a
+part of the port still to come raise and name it: ``--mesh local`` (the
+sharding slice), ``--metrics-out`` (the obs/ slice).
 """
 from __future__ import annotations
 
@@ -28,7 +33,8 @@ from repro_torch import device as devlib
 from repro_torch.configs import get_arch, reduced
 from repro_torch.models import init_params, model_specs
 from repro_torch.fed.serve import KV_KERNELS
-from repro_torch.serve import Engine, LoadSpec, generate_requests, replay
+from repro_torch.serve import (Engine, LoadSpec, generate_requests,
+                               load_serve_params, replay)
 
 
 def parse_args(argv=None):
@@ -39,11 +45,13 @@ def parse_args(argv=None):
     ap.add_argument("--reduced", action="store_true",
                     help="smoke-size variant of the same family")
     ap.add_argument("--ckpt", default=None,
-                    help="a training checkpoint to serve; not ported yet "
-                         "(raises): the bridge comes with the LM-training "
-                         "slice")
+                    help="serve the global model of this training "
+                         "checkpoint (either package's train launcher, "
+                         "dense or --ckpt-shards; the bridge takes the "
+                         "client mean)")
     ap.add_argument("--codec", default="none",
-                    help="the training run's codec, read with --ckpt")
+                    help="the training run's codec (none/int8/topk), read "
+                         "with --ckpt: lossy runs checkpoint an EF bank")
     ap.add_argument("--slots", type=int, default=8,
                     help="continuous-batching slot-pool size (the shared "
                          "decode step's batch)")
@@ -91,10 +99,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.ckpt:
-        raise NotImplementedError("--ckpt: the checkpoint bridge "
-                                  "(serve/bridge.py) comes with the "
-                                  "LM-training slice")
     if args.mesh != "none":
         raise NotImplementedError("--mesh local: sharded serving comes with "
                                   "the port's sharding slice")
@@ -112,9 +116,15 @@ def main(argv=None):
                          f"--max-len {args.max_len} (the cache holds prompt "
                          f"+ generated tokens)")
     dev = devlib.resolve(args.device)
-    params = init_params(model_specs(cfg), devlib.generator(dev, args.seed),
-                         cfg.dtype)
-    print(f"serving seed-initialized {cfg.name} params on {dev}")
+    if args.ckpt:
+        params, info = load_serve_params(args.ckpt, cfg, codec=args.codec,
+                                         device=dev)
+        print(f"loaded {args.ckpt}: layout={info['layout']} "
+              f"clients={info['clients']} step={info['step']}")
+    else:
+        params = init_params(model_specs(cfg),
+                             devlib.generator(dev, args.seed), cfg.dtype)
+        print(f"serving seed-initialized {cfg.name} params on {dev}")
     engine = Engine(cfg, params, slots=args.slots, max_len=args.max_len,
                     kv_quant=args.kv_quant, kv_kernel=args.kv_kernel,
                     eos_id=args.eos_id, device=dev)

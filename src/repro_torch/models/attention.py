@@ -78,7 +78,9 @@ def attend_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q5 = _scaled(_grouped(q, kv), dh)
     logits = torch.einsum("bqkgd,bskd->bkgqs", q5.float(), k.float())
     m = _mask(sq, sk, causal, window, q.device, q_offset)
-    logits = torch.where(m, logits, NEG_INF)
+    # in place: under autograd the masked scores are not kept beside the
+    # unmasked ones (the training forward keeps a layer's scores)
+    logits = logits.masked_fill_(~m, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype).float(),
                        v.float())

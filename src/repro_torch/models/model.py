@@ -17,7 +17,7 @@ that brings them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -30,7 +30,7 @@ from repro_torch.models.params import ParamSpec
 PORTED_FAMILIES = ("dense", "vlm", "ssm", "hybrid")
 LATER_SLICE = {
     "moe": "the MoE slice (models/moe.py)",
-    "encdec": "the LM-training slice (encoder and cross-attention)",
+    "encdec": "ROADMAP item 1c (the encoder and cross-attention)",
 }
 
 
@@ -135,6 +135,17 @@ def layer(stacked: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
     return {k: v[i] for k, v in stacked.items()}
 
 
+def layers(stacked: Dict[str, torch.Tensor]) -> List[Dict[str, torch.Tensor]]:
+    """Every layer's params, one ``unbind`` of each stacked leaf: under
+    autograd its backward stacks the layers' gradients once, where taking
+    each layer's slice would backpropagate a zero-padded gradient of the
+    whole stacked leaf per layer (at qwen1.5-4b's depth a third of a
+    training step's device time). The same values either way."""
+    per = {k: v.unbind(0) for k, v in stacked.items()}
+    n = len(next(iter(per.values())))
+    return [{k: per[k][i] for k in per} for i in range(n)]
+
+
 # ------------------------------------------------------------------ primitives
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
@@ -211,18 +222,18 @@ def features(cfg: ArchConfig, xp, batch: Dict[str, torch.Tensor],
     tokens = batch["tokens"]
     h = embed_tokens(cfg, xp, tokens, batch.get("prefix_embeds"))
     pos = torch.arange(tokens.shape[1], device=tokens.device)
+    per_layer = layers(xp["layers"])
     if cfg.family in ("ssm", "hybrid"):
         for seg, idx in mixer_segments(cfg):
             for i in idx:
-                lp = layer(xp["layers"], i)
+                lp = per_layer[i]
                 hn = rmsnorm(h, lp["ln"], cfg.norm_eps)
                 h = h + ssm_lib.mixer_seq(cfg, lp, hn, ctx.ssm_chunk)[0]
             if seg is not None:
                 h = _attn_block(cfg, xp["shared"], h, ctx, pos=pos)
                 h = mlp_block(cfg, xp["shared"], h)
         return h
-    for i in range(cfg.n_layers):
-        lp = layer(xp["layers"], i)
+    for lp in per_layer:
         h = _attn_block(cfg, lp, h, ctx, pos=pos)
         h = mlp_block(cfg, lp, h)
     return h
@@ -243,8 +254,12 @@ def mixer_segments(cfg: ArchConfig):
 
 
 def head_logits(cfg: ArchConfig, yp, feats: torch.Tensor) -> torch.Tensor:
+    """Final norm and LM head; the product in the promoted dtype of the
+    two, as JAX promotes (bf16 features cached against an f32 head give
+    f32 logits)."""
     h = rmsnorm(feats, yp["final_norm"], cfg.norm_eps)
-    return h @ yp["head"]
+    dt = torch.promote_types(h.dtype, yp["head"].dtype)
+    return h.to(dt) @ yp["head"].to(dt)
 
 
 def forward(cfg: ArchConfig, params, batch, ctx: ModelCtx) -> torch.Tensor:

@@ -115,6 +115,95 @@ def test_fused_auto_reaches_the_kernels(cuda):
     assert kern.launches == {"storm_update": 2, "adafbio_update": 1}
 
 
+def _leaves(g, m, specs, offset, device):
+    """Leaves of ``m`` rows, ``specs`` (elements a row, dtype), each a view
+    ``offset`` elements into its allocation."""
+    out = []
+    for n, dt in specs:
+        flat = torch.randn(m * n + offset, generator=g, device=device)
+        out.append(flat.to(dt)[offset:].view(m, n))
+    return out
+
+
+MIXED = [(4096, torch.bfloat16), (1000, torch.float32), (1, torch.bfloat16),
+         (2, torch.float32), (3, torch.bfloat16), (777, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("m,offset", [(1, 0), (3, 0), (2, 1)])
+@pytest.mark.parametrize("per_row", [False, True])
+def test_leaf_table_entries_equal_packed_and_plain(cuda, m, offset, per_row):
+    """The leaf-table entries on mixed f32/bf16 leaves, where they lie: one
+    launch each, bit for bit the packed f32 entry (pack, kernel, cast back)
+    and the per-leaf plain version."""
+    from repro_torch.core.tree_util import (tree_pack_stacked,
+                                            tree_unpack_stacked)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(m * 10 + offset)
+    gn, go, est, p, w = (_leaves(g, m, MIXED, offset, cuda)
+                         for _ in range(5))
+    if per_row:
+        a = [t.abs_() for t in _leaves(g, m, MIXED, offset, cuda)]
+    else:
+        a = [t[0].abs_() for t in _leaves(g, 1, MIXED, offset, cuda)]
+    beta = torch.full((), 0.3, device=cuda)
+    lr, rho = torch.full((), 0.01, device=cuda), torch.full((), 1e-4,
+                                                            device=cuda)
+    before = dict(kern.launches)
+    got_s = kern.storm_update_leaves(gn, go, est, beta)
+    got_a = kern.adafbio_update_leaves(p, w, a, lr, rho)
+    assert kern.launches["storm_update"] == before["storm_update"] + 1
+    assert kern.launches["adafbio_update"] == before["adafbio_update"] + 1
+    fl_e, spec = tree_pack_stacked(est)
+    packed_s = tree_unpack_stacked(kern.storm_update(
+        tree_pack_stacked(gn, spec)[0], tree_pack_stacked(go, spec)[0],
+        fl_e, beta), spec)
+    fl_p, spec = tree_pack_stacked(p)
+    fl_a = (tree_pack_stacked(a, spec)[0] if per_row else
+            tree_pack_stacked([t.unsqueeze(0) for t in a])[0][0])
+    packed_a = tree_unpack_stacked(kern.adafbio_update(
+        fl_p, tree_pack_stacked(w, spec)[0], fl_a, lr, rho), spec)
+    plain_s = [ref.storm_update_ref(*t, beta) for t in zip(gn, go, est)]
+    plain_a = [ref.adafbio_update_ref(*t, lr, rho) for t in zip(p, w, a)]
+    torch.cuda.synchronize()
+    for got, packed, plain in ((got_s, packed_s, plain_s),
+                               (got_a, packed_a, plain_a)):
+        for x, y, z in zip(got, packed, plain):
+            assert x.dtype == y.dtype == z.dtype
+            assert torch.equal(_bits(x), _bits(y))
+            _close(x.float(), z.float())
+
+
+def test_leaf_table_wrappers_reject_what_the_kernel_does_not_take(cuda):
+    x = torch.ones(2, 8, device=cuda)
+    beta = torch.full((), 0.5, device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kern.storm_update_leaves([x.double()], [x], [x], beta)
+    with pytest.raises(ValueError, match="contiguous"):
+        kern.storm_update_leaves([x.t().contiguous().t()], [x], [x], beta)
+    with pytest.raises(ValueError, match="shape"):
+        kern.storm_update_leaves([x[:, :4].contiguous()], [x], [x], beta)
+    with pytest.raises(ValueError, match="shape"):
+        kern.adafbio_update_leaves([x], [x], [torch.ones(3, device=cuda)],
+                                   beta, beta)
+    with pytest.raises(TypeError, match="one-element"):
+        kern.storm_update_leaves([x], [x], [x], 0.5)
+
+
+def test_tree_wrappers_make_one_launch_over_all_leaves(cuda):
+    from repro_torch.kernels import ops
+    tree = {"a": torch.ones(3, 5, device=cuda, dtype=torch.bfloat16),
+            "b": [torch.ones(3, 7, device=cuda), torch.ones(3, 1, 1,
+                                                             device=cuda)]}
+    acc = {"a": torch.ones(5, device=cuda, dtype=torch.bfloat16),
+           "b": [torch.ones(7, device=cuda), torch.ones(1, 1, device=cuda)]}
+    kern.reset_launches()
+    out = ops.storm_update_tree(tree, tree, tree, 0.5)
+    out2 = ops.adafbio_update_tree(tree, tree, acc, 0.1, 1e-4)
+    assert kern.launches == {"storm_update": 1, "adafbio_update": 1}
+    assert out["a"].dtype == torch.bfloat16 and out2["b"][1].shape == (3, 1,
+                                                                       1)
+
+
 def _bits(t):
     """The tensor's raw bits, so that equality is bit for bit."""
     return t.view(torch.int32) if t.dtype == torch.float32 else t

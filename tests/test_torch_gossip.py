@@ -284,6 +284,5 @@ def test_per_row_adafbio_equals_loop_of_shared(m, n):
                                rtol=0, atol=0)
     # the tree wrapper: per-row accumulators of a stacked tree
     tree = lambda t: {"u": t[:, :1], "v": t[:, 1:]}       # noqa: E731
-    out = ops.adafbio_update_tree(tree(p), tree(w), tree(a), 0.01, 1e-4,
-                                  per_row=True)
+    out = ops.adafbio_update_tree(tree(p), tree(w), tree(a), 0.01, 1e-4)
     assert torch.equal(torch.cat([out["u"], out["v"]], 1), got)

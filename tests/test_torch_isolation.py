@@ -62,3 +62,15 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FedDriver(quadratic_bilevel_problem(eye, eye, torch.zeros(2), eye),
                   FedConfig(), n_clients=2, batch_fn=None, init_xy=None)
+    from repro_torch.configs import ShapeConfig, get_arch, reduced
+    from repro_torch.fed.runtime import FederatedTrainer
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FederatedTrainer(reduced(get_arch("qwen1.5-4b")), FedConfig(),
+                         ShapeConfig("t", 32, 2, "train"))
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.models.params import TensorSpec
+    from repro_torch.serve import load_serve_params
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_serve_params("missing", reduced(get_arch("qwen1.5-4b")))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_checkpoint("missing", {"a": TensorSpec((2,), torch.float32)})

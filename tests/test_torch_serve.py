@@ -457,8 +457,7 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="sharding slice"):
         build_serve_fns(cfg, ShapeConfig("s", 12, 1, "decode"),
                         mesh=object())
-    for flags, what in ((["--ckpt", "x"], "LM-training slice"),
-                        (["--mesh", "local"], "sharding slice"),
+    for flags, what in ((["--mesh", "local"], "sharding slice"),
                         (["--metrics-out", "m.jsonl"], "obs/ slice")):
         with pytest.raises(NotImplementedError, match=what):
             cli.main(["--arch", "qwen1.5-4b", "--reduced", *flags])
