@@ -17,8 +17,8 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
    M = 1, at a ragged n, at a misaligned view and at n < 4 (within 1e-6),
    ``adafbio_update`` both with one shared ``a`` row and with one ``a`` row
    per client row (the gossip engine's per-node accumulators);
-   the int8 codec's quantize and dequantize at the codec path's message
-   [8, 2_173_440] in its 10 leaf segments, at M = 1, at 4 bits, at a ragged
+   the int8 codec's quantize and dequantize on a packed message, the codec
+   path's [8, 2_173_440] in its 10 leaf segments, at M = 1, at 4 bits, at a ragged
    n, at two misaligned views (one with n % 4 == 0) and at n < 4 (bit for
    bit). Times kernel and
    plain version with CUDA events (median of 30 launches after warm-up,
@@ -32,11 +32,12 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
    a finite validation loss and eager == scan;
 5. codec path: the same at ``codec="int8"`` with error feedback and
    participation 0.5, eager and scan: one quantize and one dequantize
-   launch per sync, the update kernels' counts as on the main path, a
+   launch per leaf per sync (the codec goes leaf by leaf: 10 leaves), the
+   update kernels' counts as on the main path, a
    finite loss, eager == scan, and bytes_up as the formula gives them;
 6. population path: 32 clients in a bank, cohorts of 8, participants sync
    with staleness weights, int8 with error feedback, 4 rounds: one quantize
-   and one dequantize launch per round, a finite loss, bytes as the
+   and one dequantize launch per leaf per round, a finite loss, bytes as the
    formulas give them; then broadcast population rounds against the
    masked path with the same cohorts (within 1e-5), and a topk run;
 7. hyperclean-mnist-width: hyper-cleaning (8 clients, 7,500 training and
@@ -87,6 +88,22 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
    more round, then the serve CLI on 4 requests from the checkpoint: the
    bridge's params equal the saved client mean and every request is served
    once;
+12b. the LM rounds (``LM_ROUND_PHASES``): ``FederatedTrainer``'s
+   population, async and gossip builders on qwen1.5-4b at full width,
+   the depth cut to what one card holds, the launcher's FedConfig, seq
+   512, global batch 8 over the cohort, 2-3 rounds: lm-population (N 4,
+   C 2, broadcast, 4 layers), lm-async (N 4, C 2, tiered delays,
+   participants, 2 layers), lm-gossip (a ring of 4, 2 layers),
+   lm-population-int8 (N 2, C 1, int8 + EF, 4 layers); each under the cut
+   rule (a peak above LM_PEAK_GB halves seq, then drops to 2 layers),
+   with exact launch counts, every bank row equal to the sync's state bit
+   for bit, the async flight invariants, finite leaves and the wire bytes
+   against ``wire_costs``; prints ms a round, the peak and the cut. Then
+   the same rounds at reduced size on the CPU and the card (the card
+   given the CPU's int8 levels) within the CPU tests' tolerances, and the
+   codec's leaf route against the packed route bit for bit at full width
+   (the embedding, a layer, the final norm) with the quantize pair timed
+   at the embedding leaf [1, 388_956_160]: rows 3-4 of the kernels line;
 13. flash phase: the prefill's attention kernel against its plain version
    (f32 math) in the prefill's [B, S, H, D] layout: the full-width prefill
    (qwen2.5-14b: 40 heads over 8, head_dim 128, S 1536, bf16, causal), MHA
@@ -250,6 +267,7 @@ SSM_CONTROL_TICKS = 2
 HYBRID_F32_RTOL = 1e-4
 MAIN_SHAPE = (8, 1_066_240)    # the main path's packed [M, n] x buffer
 MSG_ELEMENTS = 2_173_440       # one client's message at MNIST width
+MSG_LEAVES = 10                # its leaves: one int8 launch pair each a sync
 # the source of each kernel the main paths launch: flash_attention's bf16
 # kernel (the serve paths'); its f32 inputs run csrc/flash_attention.cu
 SOURCES = {"storm_update": "src/repro_torch/kernels/csrc/storm_update.cu",
@@ -344,6 +362,32 @@ LEAF_CASES = [
     ("misaligned", 2, [(4096, "bfloat16", 1), (1001, "float32", 1),
                        (8, "bfloat16", 3), (2560, "float32", 0)])]
 COLD_FLUSH_BYTES = 128 * 2 ** 20   # written before each cold call: > L2
+# The LM trainer's population, async and gossip rounds (lm_rounds_phase):
+# qwen1.5-4b at full width, the depth cut to what one card holds, the
+# launcher's FedConfig and ShapeConfig("cli", 512, 8): the global batch of
+# 8 split over the cohort. Cut rule: where a phase's peak passes
+# LM_PEAK_GB, seq 256, then 2 layers.
+LM_ROUND_SEQ, LM_ROUND_BATCH = 512, 8
+LM_ROUNDS = 2
+LM_PEAK_GB = 76.0
+LM_ROUND_PHASES = [
+    ("lm-population-qwen1.5-4b",
+     dict(mode="population", n=4, c=2, layers=4, codec="none")),
+    # seed 1: the fast tier's client is in round 0's cohort, so arrivals
+    # land in rounds 1 and 2, and round 2 finds a client in flight
+    ("lm-async-qwen1.5-4b",
+     dict(mode="async", n=4, c=2, layers=2, codec="none", rounds=3,
+          seed=1)),
+    ("lm-gossip-qwen1.5-4b",
+     dict(mode="gossip", n=4, c=4, layers=2, codec="none")),
+    ("lm-population-int8-qwen1.5-4b",
+     dict(mode="population", n=2, c=1, layers=4, codec="int8"))]
+# the same rounds at reduced qwen1.5-4b, card against CPU: the tolerances
+# the CPU tests hold the port to against the reference at K = 1
+# (tests/test_torch_lm_population.py, _async.py, _gossip.py)
+LM_PARITY_FED = dict(q=2, neumann_k=1, rho=1e-2)
+LM_PARITY_REL = {"population": 1e-4, "async": 1e-3, "gossip": 1e-4}
+LM_PARITY_EF_REL = 5e-2
 
 
 def gpu_line():
@@ -610,7 +654,7 @@ def main_path(torch, kerns):
 
 def codec_path(torch, kerns, task, cfg):
     """The masked path with the int8 codec and error feedback, eager and
-    scan: one quantize and one dequantize launch per sync."""
+    scan: one quantize and one dequantize launch per leaf per sync."""
     from repro_torch.core.tree_util import tree_leaves
     from repro_torch.tasks import FedDriver
 
@@ -629,7 +673,8 @@ def codec_path(torch, kerns, task, cfg):
         counts = launch_counts(kerns)
         syncs = res.comms[-1]
         want = {"storm_update": 2 * steps, "adafbio_update": steps + syncs,
-                "quantize_stoch": syncs, "dequantize": syncs}
+                "quantize_stoch": MSG_LEAVES * syncs,
+                "dequantize": MSG_LEAVES * syncs}
         if counts != want:
             raise AssertionError(f"codec {engine}: launches {counts}, "
                                  f"want {want}")
@@ -661,7 +706,7 @@ def codec_path(torch, kerns, task, cfg):
 def population_path(torch, kerns, cfg):
     """32 clients in a bank, cohorts of 8, participants sync with staleness
     weights, int8 with error feedback: one quantize and one dequantize
-    launch per round."""
+    launch per leaf per round."""
     from repro_torch.configs import PopulationConfig
     from repro_torch.tasks import FedDriver, build_hyperrep
 
@@ -682,7 +727,8 @@ def population_path(torch, kerns, cfg):
     counts = launch_counts(kerns)
     syncs = res.comms[-1]
     want = {"storm_update": 2 * steps, "adafbio_update": steps + syncs,
-            "quantize_stoch": rounds, "dequantize": rounds}
+            "quantize_stoch": MSG_LEAVES * rounds,
+            "dequantize": MSG_LEAVES * rounds}
     if counts != want:
         raise AssertionError(f"population: launches {counts}, want {want}")
     if not all(math.isfinite(v) for v in res.metric):
@@ -956,9 +1002,11 @@ def async_path(torch, kerns):
     counts = launch_counts(kerns)
     # every round: q local steps, one server step (a round without an
     # accepted arrival discards it), one codec round trip for the cohort
+    # (a launch pair a leaf)
     check_counts("async", counts, {
         "storm_update": 2 * steps, "adafbio_update": steps + ASYNC_ROUNDS,
-        "quantize_stoch": ASYNC_ROUNDS, "dequantize": ASYNC_ROUNDS})
+        "quantize_stoch": MSG_LEAVES * ASYNC_ROUNDS,
+        "dequantize": MSG_LEAVES * ASYNC_ROUNDS})
     log = drv.staleness_log
     tot = {k: sum(r[k] for r in log) for k in ("arrived", "accepted",
                                                "dropped", "synced",
@@ -1050,7 +1098,8 @@ def gossip_path(torch, kerns, task, cfg):
     # node rows, each with its own accumulator row
     check_counts("gossip", counts, {
         "storm_update": 2 * steps, "adafbio_update": steps + syncs,
-        "quantize_stoch": GOSSIP_ROUNDS, "dequantize": GOSSIP_ROUNDS})
+        "quantize_stoch": MSG_LEAVES * GOSSIP_ROUNDS,
+        "dequantize": MSG_LEAVES * GOSSIP_ROUNDS})
     if len(per_row) != steps + syncs or not all(per_row):
         raise AssertionError(f"gossip: {sum(per_row)} of {len(per_row)} "
                              f"adafbio launches took per-node accumulators")
@@ -2460,13 +2509,491 @@ def train_ckpt_serve_phase(torch, kerns):
     return counts
 
 
+# ------------------------------------------------------------ LM rounds
+
+class DrawsOn:
+    """A :class:`repro_torch.fed.population.DelayDraws` whose draws are made
+    on the host and handed to ``device``: the card and CPU runs of the
+    parity checks then see the same delays."""
+
+    def __init__(self, torch, seed, device):
+        from repro_torch.fed.population import DelayDraws
+        self.host, self.device = DelayDraws(seed, "cpu"), torch.device(device)
+
+    def randint(self, *a):
+        return self.host.randint(*a).to(self.device)
+
+    def uniform(self, *a):
+        return self.host.uniform(*a).to(self.device)
+
+    def normal(self, *a):
+        return self.host.normal(*a).to(self.device)
+
+    def permutation(self, *a):
+        return self.host.permutation(*a).to(self.device)
+
+
+def lm_rounds(torch, kerns, cfg, mode, n, c, seq, codec="none",
+              rounds=LM_ROUNDS, device="cuda", draw_dev="cuda", params=None,
+              seed=0, batch=LM_ROUND_BATCH, fed_kw=None):
+    """``rounds`` rounds of the LM trainer's ``mode`` (population, async or
+    gossip) builder on ``cfg``: FedConfig as the train launcher's (with
+    ``fed_kw`` over it), the global ``batch`` split over the cohort as
+    ``client_batch_specs`` splits it, every draw (data, cohorts, depths,
+    codec noise, delays) made on ``draw_dev`` from ``seed`` and handed to
+    ``device``. Checks each round's invariants (broadcast: every bank row
+    equals the sync's client state bit for bit, ``last_sync`` r + 1, the
+    server's t q + 1 a round; async: no client in flight dispatched again;
+    gossip: every adafbio launch on per-node accumulators), the exact
+    launch counts (from after the init), finite leaves and the bytes
+    against ``wire_costs``. Returns the final state, the counts, ms a
+    round, peak GB and the bytes."""
+    from repro_torch import device as devlib
+    from repro_torch.configs import FedConfig, ShapeConfig
+    from repro_torch.core.tree_util import tree_leaves, tree_map, tree_stack
+    from repro_torch.data.synthetic import (FederatedLMData, TorchLMDraws,
+                                            make_client_batch,
+                                            make_cohort_batch)
+    from repro_torch.fed.compress import CodecNoise
+    from repro_torch.fed.population import make_delay_model
+    from repro_torch.fed.runtime import (FederatedTrainer, NeumannDraws,
+                                         client_batch_specs, round_depths)
+    from repro_torch.fed.sampling import UniformSampler
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import PARAM_SALT, wire_costs
+    from repro_torch.models.params import TensorSpec
+
+    dev = torch.device(device)
+    fed = FedConfig(**{**LM_FED, **(fed_kw or {})}, codec=codec,
+                    error_feedback=True)
+    q = fed.q
+    tr = FederatedTrainer(cfg, fed, ShapeConfig("cli", seq, batch, "train"),
+                          device=dev)
+    specs_c = client_batch_specs(cfg, tr.shape, c, fed)
+    specs_n = {k: TensorSpec((n,) + tuple(v.shape[1:]), v.dtype)
+               for k, v in specs_c.items()}
+    data = FederatedLMData(vocab=cfg.vocab, n_clients=n,
+                           draws=TorchLMDraws(seed, draw_dev))
+    depths = NeumannDraws(seed, fed.neumann_k, n, draw_dev)
+    noise = CodecNoise(seed, draw_dev)
+    sampler = UniformSampler(n, c, seed)
+    syncs, copy_s = [], []
+    if mode == "population":
+        # the sync's client state for the broadcast check, kept on the host:
+        # off the card's peak, and the copy's seconds off the round's clock
+        real_alg = tr.alg
+
+        def sync_kept_on_host(s, a, m):
+            out = real_alg.sync_update(s, a, m)
+            devlib.fence(dev)
+            t0 = time.time()
+            syncs.append(tree_map(lambda t: t.to("cpu"), out[0]))
+            copy_s.append(time.time() - t0)
+            return out
+        tr.alg = dataclasses.replace(real_alg, sync_update=sync_kept_on_host)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    if params is None:
+        params = tr.init_params(devlib.generator(dev, seed, PARAM_SALT))
+    batch0 = make_client_batch(data, cfg, specs_n, 0, dev)
+    k0 = depths.init().to(dev)
+    ef = srv_bank = state = None
+    if mode == "population":
+        bank, last_sync, server = tr.init_population_states(params, batch0,
+                                                            k0)
+        ef = tr.init_ef_bank(n)
+        round_fn = tr.population_round_fn(n)
+    elif mode == "async":
+        dm = make_delay_model("tiers", 8)
+        draws = DrawsOn(torch, seed, dev)
+        dm = dm.resolve(draws, n)
+        state = tr.init_async_population_states(params, batch0, k0)
+        round_fn = tr.async_population_round_fn(
+            n, sync_mode="participants", staleness_decay=0.5,
+            max_staleness=4, max_delay=8, delay_eta=0.5, delay_model=dm,
+            delay_draws=draws)
+    else:
+        bank, srv_bank = tr.init_gossip_states(params, batch0, k0)
+        ef = tr.init_ef_bank(n)
+        round_fn = tr.gossip_round_fn(n, topology="ring")
+        agg = tr.gossip_aggregator(n, topology="ring")
+    del params, batch0
+    msg_b, down_b = wire_costs(tr, n)
+    bytes_up = bytes_down = 0
+    record, hist, per_row, ms = [], [], [], []
+    real_ada = ops.adafbio_update_leaves
+
+    def counting(p, w, a, lr_eta, rho):
+        per_row.append(all(ai.shape == pi.shape for pi, ai in zip(p, a)))
+        return real_ada(p, w, a, lr_eta, rho)
+
+    reset_launches(kerns)
+    ops.adafbio_update_leaves = counting
+    try:
+        for r in range(rounds):
+            ids_host = (torch.arange(n) if mode == "gossip"
+                        else sampler.cohort(r))
+            ids = ids_host.to(dev)
+            if mode == "gossip":
+                batch_q = tree_stack([make_client_batch(
+                    data, cfg, specs_n, r * q + j, dev) for j in range(q)])
+            else:
+                batch_q = tree_stack([make_cohort_batch(
+                    data, cfg, specs_c, r * q + j, ids_host, dev)
+                    for j in range(q)])
+            k_q = round_depths(depths, r, q, ids_host.to(draw_dev)).to(dev)
+            u = None
+            if codec == "int8":
+                src = noise(r, ids_host.to(draw_dev))
+                u = lambda i, size, src=src: src(i, size).to(dev)
+            devlib.fence(dev)
+            r0 = time.time()
+            if mode == "population":
+                if codec == "none":
+                    bank, last_sync, server = round_fn(
+                        bank, last_sync, server, ids, batch_q, k_q, r)
+                else:
+                    bank, last_sync, ef, server = round_fn(
+                        bank, last_sync, ef, server, ids, batch_q, k_q, r,
+                        u)
+            elif mode == "async":
+                before = {k: state[k].clone() for k in (
+                    "in_flight", "dispatch_round", "return_round")}
+                state, stats = round_fn(state, ids, batch_q, k_q, r, u)
+                record.append((r, ids.cpu(), {k: v.cpu() for k, v in
+                                              before.items()},
+                               {k: state[k].cpu() for k in before}))
+            else:
+                bank, srv_bank, ef = round_fn(bank, srv_bank, ef, batch_q,
+                                              k_q, r, u, sync_first=r > 0)
+            devlib.fence(dev)
+            ms.append((time.time() - r0 - sum(copy_s)) * 1e3)
+            copy_s.clear()
+            del batch_q
+            if mode == "population":
+                new = dict(named_leaves(syncs.pop()))
+                for name, row in named_leaves(bank):
+                    want = new.pop(name).to(dev)
+                    for i in range(n):
+                        if not torch.equal(row[i], want):
+                            raise AssertionError(
+                                f"lm population round {r}: bank row {i} "
+                                f"{name} differs from the sync's state")
+                    del want
+                del new
+                if (last_sync != r + 1).any() or int(server["t"]) != (
+                        q + 1) * (r + 1):
+                    raise AssertionError(f"lm population round {r}: "
+                                         f"last_sync {last_sync.tolist()}, "
+                                         f"t {int(server['t'])}")
+                bytes_up += int(torch.unique(ids_host).numel()) * msg_b
+                bytes_down += n * down_b
+            elif mode == "async":
+                host = {k: v.cpu() for k, v in stats.items()}
+                hist += [int(t) for t in host["staleness"] if t >= 0]
+                bytes_up += int(host["arrived"]) * msg_b
+                bytes_down += int(host["synced"]) * down_b
+            elif r > 0:
+                up, down = agg.wire_round(msg_b, down_b, edges=agg.edges(0))
+                bytes_up += up
+                bytes_down += down
+    finally:
+        ops.adafbio_update_leaves = real_ada
+        if mode == "population":
+            tr.alg = real_alg
+    counts = launch_counts(kerns)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" \
+        else float("nan")
+    final = (state if mode == "async" else
+             {"bank": bank, "ef": ef, **({"server": server}
+                                         if mode == "population" else
+                                         {"srv_bank": srv_bank})})
+    leaves = tree_leaves(final["bank"])
+    n_leaves = len(leaves)
+    steps = rounds * q
+    syncs_n = rounds - 1 if mode == "gossip" else rounds
+    want = {"storm_update": 2 * steps, "adafbio_update": steps + syncs_n,
+            "quantize_stoch": n_leaves * rounds if codec == "int8" else 0,
+            "dequantize": n_leaves * rounds if codec == "int8" else 0}
+    if dev.type == "cuda":
+        check_counts(f"lm {mode}", counts, want)
+        if mode == "gossip" and not (len(per_row) == want[
+                "adafbio_update"] and all(per_row)):
+            raise AssertionError(f"lm gossip: {sum(per_row)} of "
+                                 f"{len(per_row)} adafbio launches per-node")
+    busy = check_no_redispatch(record) if mode == "async" else 0
+    bad = [name for name, t in named_leaves(final)
+           if t is not None and t.is_floating_point()
+           and not bool(torch.isfinite(t).all())]
+    if bad:
+        raise AssertionError(f"lm {mode}: non-finite leaves {bad}")
+    # the bytes against the pricing's own formula, leaf by leaf
+    sizes = [math.prod(t.shape[1:]) for t in leaves]
+    want_msg = (sum(s + 4 for s in sizes) if codec == "int8" else
+                sum(math.prod(t.shape[1:]) * t.element_size()
+                    for t in leaves))
+    if msg_b != want_msg:
+        raise AssertionError(f"lm {mode}: wire_costs {msg_b}, the formula "
+                             f"{want_msg}")
+    return dict(final=final, counts=counts, ms=ms, peak_gb=peak,
+                bytes=(bytes_up, bytes_down), msg_b=msg_b, down_b=down_b,
+                hist=hist, busy=busy, n_leaves=n_leaves)
+
+
+def lm_depth_cfg(layers):
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(LM_ARCH), n_layers=layers)
+
+
+def lm_rounds_phase(torch, kerns, name, spec):
+    """One of the LM rounds phases at qwen1.5-4b's full width, under the
+    cut rule: at seq 512 first; where the peak passes LM_PEAK_GB (or the
+    card runs out of memory), seq 256, then 2 layers. Prints the round
+    times, the peak and the cut; returns the launch counts."""
+    mode, n, c, layers, codec = (spec[k] for k in ("mode", "n", "c",
+                                                   "layers", "codec"))
+    rounds, seed = spec.get("rounds", LM_ROUNDS), spec.get("seed", 0)
+    cuts = [(LM_ROUND_SEQ, layers), (LM_ROUND_SEQ // 2, layers)]
+    if layers > 2:
+        cuts.append((LM_ROUND_SEQ // 2, 2))
+    tried = []
+    for seq, depth in cuts:
+        free_device_memory(torch)
+        err = None
+        try:
+            out = lm_rounds(torch, kerns, lm_depth_cfg(depth), mode, n, c,
+                            seq, codec, rounds=rounds, seed=seed)
+        except torch.cuda.OutOfMemoryError as e:
+            err = str(e).splitlines()[0]
+        if err is None and out["peak_gb"] <= LM_PEAK_GB:
+            break
+        tried.append(f"seq {seq} L {depth}: " + (
+            f"out of memory ({err})" if err else
+            f"peak {out['peak_gb']:.2f} GB"))
+        out = None
+    else:
+        raise AssertionError(f"{name}: nothing fits: {tried}")
+    up, down = out["bytes"]
+    extra = ""
+    if mode == "async":
+        extra = (f"; accepted staleness {sorted(out['hist'])}, "
+                 f"{out['busy']} cohort slots found their client in flight")
+        if not out["hist"] or not out["busy"]:
+            raise AssertionError(f"{name}: no accepted arrival or no busy "
+                                 f"slot, so the async checks saw nothing")
+    print(f"{name}: N {n}, C {c}, codec {codec}, seq {seq}, {depth} layers "
+          f"(cut: {'; '.join(tried) or 'none beyond the depth'}), "
+          f"{rounds} rounds of q {LM_FED['q']}: "
+          f"{[round(x, 2) for x in out['ms']]} ms a round, peak "
+          f"{out['peak_gb']:.2f} GB; launches {out['counts']}; "
+          f"{out['n_leaves']} leaves; wire totals ({codec}): bytes_up={up} "
+          f"bytes_down={down} (message {out['msg_b']} B, downlink "
+          f"{out['down_b']} B){extra}", flush=True)
+    counts = out["counts"]
+    del out
+    free_device_memory(torch)
+    return counts, dict(seq=seq, layers=depth, cut=tried)
+
+
+class LevelReplay:
+    """The int8 levels of one run, call by call: ``record`` keeps the
+    levels of the plain run's quantize calls, ``replay`` hands them to the
+    card run's calls in the same order (counting how many of the card's
+    own levels sit apart, and by how much), so that a level one f32
+    rounding put one step apart does not carry into the rest of the run,
+    as the CPU tests replay the reference's levels."""
+
+    def __init__(self, ops):
+        self.ops, self.real = ops, ops.quantize_stoch
+        self.levels, self.at, self.apart, self.worst, self.seen = [], 0, 0, 0, 0
+
+    def record(self, *args):
+        q = self.real(*args)
+        self.levels.append(q.clone())
+        return q
+
+    def replay(self, *args):
+        q = self.real(*args)
+        want = self.levels[self.at].to(q.device)
+        self.at += 1
+        diff = (q.int() - want.int()).abs()
+        self.apart += int((diff > 0).sum())
+        self.worst = max(self.worst, int(diff.max()))
+        self.seen += diff.numel()
+        return want
+
+
+def lm_rounds_parity(torch, kerns):
+    """The LM rounds at reduced(qwen1.5-4b) in f32, on the CPU (the
+    kernels' plain versions) and then on the card from the same params and
+    draws, as the CPU tests run them against the reference (seq 32, batch
+    2, q 2, rho 1e-2; K = 1, no bf16 feature cache): population int8 +
+    EF, async, gossip int8 + EF, the card given the CPU's int8 levels
+    (:class:`LevelReplay`). Every final leaf within the CPU tests'
+    tolerance against the reference, normwise: LM_PARITY_REL for the
+    state, LM_PARITY_EF_REL for the EF residuals."""
+    from repro_torch import device as devlib
+    from repro_torch.configs import FedConfig, ShapeConfig, get_arch, reduced
+    from repro_torch.core.tree_util import tree_map
+    from repro_torch.fed.runtime import FederatedTrainer
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import PARAM_SALT
+
+    cfg = reduced(get_arch(LM_ARCH), dtype="float32")
+    cpu_tr = FederatedTrainer(cfg, FedConfig(**LM_FED), ShapeConfig(
+        "cli", 32, 2, "train"), device="cpu")
+    params = cpu_tr.init_params(devlib.generator("cpu", 1, PARAM_SALT))
+    for mode, n, c, codec in (("population", 4, 2, "int8"),
+                              ("async", 4, 2, "none"),
+                              ("gossip", 4, 4, "int8")):
+        runs, levels = {}, LevelReplay(ops)
+        for dev, tap in (("cpu", levels.record), ("cuda", levels.replay)):
+            reset_launches(kerns)
+            ops.quantize_stoch = tap
+            try:
+                runs[dev] = lm_rounds(
+                    torch, kerns, cfg, mode, n, c, 32, codec,
+                    rounds=3 if mode == "async" else 2, device=dev,
+                    draw_dev="cpu", seed=1, batch=2, fed_kw=LM_PARITY_FED,
+                    params=tree_map(lambda t: t.to(dev), params))["final"]
+            finally:
+                ops.quantize_stoch = levels.real
+        worst = {"state": 0.0, "ef": 0.0}
+        for (name, a), (_, b) in zip(named_leaves(runs["cuda"]),
+                                     named_leaves(runs["cpu"])):
+            if a is None or not a.is_floating_point():
+                continue
+            group = "ef" if name.startswith("ef/") else "state"
+            worst[group] = max(worst[group], rel_err(torch, a, b))
+        print(f"lm-rounds parity at reduced {LM_ARCH} (f32, K 1), {mode} "
+              f"{codec}: card vs CPU worst normwise rel err state "
+              f"{worst['state']:.3e} (limit {LM_PARITY_REL[mode]}), EF "
+              f"{worst['ef']:.3e} (limit {LM_PARITY_EF_REL}); int8 levels "
+              f"replayed: {levels.apart} of {levels.seen} apart, by at most "
+              f"{levels.worst}", flush=True)
+        if not (worst["state"] <= LM_PARITY_REL[mode]
+                and worst["ef"] <= LM_PARITY_EF_REL and levels.worst <= 1):
+            raise AssertionError(f"lm {mode}: card and CPU disagree")
+
+
+def codec_route_check(torch, qkern, ref):
+    """The leaf route against the packed route at qwen1.5-4b's full width,
+    bit for bit, on a subtree where the packed route fits (the final norm,
+    one layer's leaves and the embedding; one client, int8 + EF), the
+    packed route given the per-leaf noise concatenated; then the quantize
+    pair timed at the embedding leaf [1, 388,956,160]. Returns rows 3-4's
+    numbers."""
+    from repro_torch.core.tree_util import (tree_map, tree_pack_stacked,
+                                            tree_unpack_stacked)
+    from repro_torch.fed import compress
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_specs
+    from repro_torch.models.params import torch_dtype
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    specs = model_specs(lm_depth_cfg(1))
+    sub = {"embed": specs["x"]["embed"], "final_norm": specs["y"][
+        "final_norm"], "layer": specs["x"]["layers"]}
+
+    def draw(s, scale):
+        t = torch.randn((1,) + tuple(s.shape), generator=gen, device=dev)
+        return (t * scale).to(torch_dtype(s.dtype or "bfloat16"))
+    ref_t = tree_map(lambda s: draw(s, 0.02), sub)
+    cur = tree_map(lambda a: (a.float() + 1e-3 * torch.randn(
+        a.shape, generator=gen, device=dev)).to(a.dtype), ref_t)
+    ef = tree_map(lambda a: 1e-4 * torch.randn(a.shape, generator=gen,
+                                                device=dev), ref_t)
+    codec = compress.make_codec("int8")
+    u = compress.CodecNoise(0, dev)(0, torch.zeros(1, dtype=torch.long,
+                                                   device=dev))
+    reset_launches((qkern,))
+    recon, ef_new = compress.client_messages(codec, ref_t, cur, ef, u)
+    leaf_launches = dict(qkern.launches)
+    # the packed route: one [1, n] f32 buffer, one launch pair over every
+    # leaf segment
+    fl_ref, spec = tree_pack_stacked(ref_t)
+    delta = tree_pack_stacked(cur, spec)[0] - fl_ref
+    delta = delta + tree_pack_stacked(ef, spec)[0]
+    sizes = [math.prod(s) for s in spec.shapes]
+    offsets = [0]
+    for size in sizes:
+        offsets.append(offsets[-1] + size)
+    u_all = torch.cat([u(i, size) for i, size in enumerate(sizes)], dim=1)
+    table = torch.tensor(offsets, dtype=torch.int64, device=dev)
+    scale = ops.leaf_scales(delta, offsets, codec.qmax)
+    sent = qkern.dequantize(qkern.quantize_stoch(delta, u_all, scale, table,
+                                                 codec.qmax), scale, table)
+    del u_all
+    want_recon = tree_unpack_stacked(fl_ref + sent, spec)
+    want_ef = tree_unpack_stacked(delta - sent, spec.with_dtype(
+        torch.float32))
+    del fl_ref, delta, sent
+    same = all(bits(torch, a).equal(bits(torch, b)) for a, b in zip(
+        [t for _, t in named_leaves((recon, ef_new))],
+        [t for _, t in named_leaves((want_recon, want_ef))]))
+    print(f"codec leaf route vs packed route at full width ({len(sizes)} "
+          f"leaves, {sum(sizes):,} elements, the embedding "
+          f"{sizes[0]:,}): bit-equal {same}; leaf route launches "
+          f"{leaf_launches}", flush=True)
+    if not same or leaf_launches != {"quantize_stoch": len(sizes),
+                                     "dequantize": len(sizes)}:
+        raise AssertionError("the codec's leaf route differs from the "
+                             "packed route")
+    del recon, ef_new, want_recon, want_ef, ref_t, cur, ef
+    # the quantize pair at the embedding leaf, as the int8 LM phase runs it
+    n = sizes[0]
+    x = torch.randn((1, n), generator=gen, device=dev)
+    uu = torch.rand((1, n), generator=gen, device=dev)
+    t2 = torch.tensor([0, n], dtype=torch.int64, device=dev)
+    sc = ops.leaf_scales(x, (0, n), codec.qmax)
+    qq = qkern.quantize_stoch(x, uu, sc, t2, codec.qmax)
+    exact = (torch.equal(qq, ref.quantize_stoch_ref(x, uu, sc, t2,
+                                                    codec.qmax))
+             and bits(torch, qkern.dequantize(qq, sc, t2)).equal(
+                 bits(torch, ref.dequantize_ref(qq, sc, t2))))
+    if not exact:
+        raise AssertionError("quantize pair differs from its plain "
+                             "version at the embedding leaf")
+    # one segment: a single PyTorch call dequantizes (int8 times the [1, 1]
+    # f32 scale promotes to f32 and rounds once, as the kernel does)
+    library = lambda: torch.mul(qq, sc)
+    if not bits(torch, library()).equal(bits(torch, qkern.dequantize(
+            qq, sc, t2))):
+        raise AssertionError("torch.mul differs from the dequantize kernel "
+                             "at the embedding leaf")
+    out = {}
+    for name, fast, plain, nbytes in (
+            ("quantize_stoch",
+             lambda: qkern.quantize_stoch(x, uu, sc, t2, codec.qmax),
+             lambda: ref.quantize_stoch_ref(x, uu, sc, t2, codec.qmax),
+             9 * n),
+            ("dequantize", lambda: qkern.dequantize(qq, sc, t2),
+             lambda: ref.dequantize_ref(qq, sc, t2), 5 * n)):
+        nbytes += 4 + 16
+        out[name] = dict(ms=time_ms(torch, fast), plain_ms=time_ms(
+            torch, plain, reps=5), bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            max_abs_err=0.0, elements=n, library_ms=(
+                time_ms(torch, library) if name == "dequantize" else None))
+        lib = ("" if out[name]["library_ms"] is None else
+               f" torch.mul {out[name]['library_ms']:.4f} ms")
+        print(f"kernel {name:15s} embedding leaf [1, {n}]: kernel "
+              f"{out[name]['ms']:.4f} ms plain {out[name]['plain_ms']:.4f} "
+              f"ms{lib} bound {out[name]['bound_ms']:.4f} ms (bit-exact)",
+              flush=True)
+    del x, uu, qq
+    free_device_memory(torch)
+    return out
+
+
 def adafbio_phases(torch, kern, qkern, ref, ops):
     """Phases 3-9: the update and codec kernels against their plain
     versions, then the federated paths; returns the kernels' numbers and
     the paths' launch counts. The tasks they build are freed on return."""
     kerns = (kern, qkern)
     segments = message_segments(mnist_width())
-    if sum(segments) != MSG_ELEMENTS or len(segments) != 10:
+    if sum(segments) != MSG_ELEMENTS or len(segments) != MSG_LEAVES:
         raise AssertionError(f"message segments {segments}")
     numbers = kernel_phase(torch, kern, ref)
     numbers.update(quantize_phase(torch, qkern, ref, ops, segments))
@@ -2541,6 +3068,18 @@ def main() -> int:
     for name, ms in lm["kernel_ms"].items():
         numbers[name]["lm_step_ms"] = ms
     add_counts(launches, train_ckpt_serve_phase(torch, (kern, qkern)))
+    free_device_memory(torch)
+    for name, spec in LM_ROUND_PHASES:
+        counts, _ = lm_rounds_phase(torch, (kern, qkern), name, spec)
+        add_counts(launches, counts)
+    lm_rounds_parity(torch, (kern, qkern))
+    # rows 3-4 of the kernels line: the codec's per-leaf launch at the
+    # embedding leaf (this slice's path), the packed message at the MNIST
+    # shape beside it
+    for name, row in codec_route_check(torch, qkern, ref).items():
+        packed = numbers[name]
+        numbers[name] = {**{f"packed_{k}": packed[k] for k in (
+            "ms", "plain_ms", "bound_ms", "max_abs_err")}, **row}
     free_device_memory(torch)
     numbers.update(flash_phase(torch, fkern, ref))
     numbers.update(quant_decode_phase(torch, qd, ref))

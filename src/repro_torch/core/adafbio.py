@@ -10,8 +10,9 @@ flat-buffer kernels from :mod:`repro_torch.kernels.ops` (selected by
 ``FedConfig.fused``).
 
 Client states carry a leading M axis: per-client gradients run through
-``torch.func.vmap`` (:func:`per_client`; one client runs without it), and
-each fused kernel then launches ONCE over all clients' leaves.
+``torch.func.vmap`` (:func:`per_client`; one client, and the clients of a
+problem that asks for it, run without it), and each fused kernel then
+launches ONCE over all clients' leaves.
 
 State:
   ClientState = {"x", "y", "v", "w"}        (each leaf [M, ...])
@@ -69,22 +70,44 @@ def grad_g_y_fn(problem: BilevelProblem):
     return problem.grad_g_y or grad(problem.g, argnums=1)
 
 
-def per_client(fn):
+def per_client(fn, loop: bool = False):
     """``fn`` mapped over the leading client axis of all its arguments:
-    ``vmap``, or, for one client, ``fn`` on that client's slices with the
-    axis put back on the outputs (the same function without the batching
-    layer; the LM trainer runs one client a card at full width). At M = 1
-    ``vmap`` gives the same peak and device time, but its batching layer
-    costs the host-bound qwen1.5-4b step 0.8-1.9 s: 3.8-4.5 s a step
-    against 2.6-3.0 s on an H100 80GB HBM3 at 700 W
-    (``launch/profile_train.py``)."""
+    ``vmap``, or ``fn`` on each client's slices in turn, its outputs
+    written into one stacked tree (the same function without the batching
+    layer). One client always runs so, with the axis put back as a view,
+    and so do the clients of every call with ``loop`` (a problem's
+    ``client_loop``: the LM problem's).
+
+    Why: at M = 1 ``vmap`` gives the same peak and device time, but its
+    batching layer costs the host-bound qwen1.5-4b step 0.8-1.9 s: 3.8-4.5
+    s a step against 2.6-3.0 s on an H100 80GB HBM3 at 700 W
+    (``launch/profile_train.py``). For a cohort of 2 at full width (4
+    layers, seq 512, ``chip_smoke.py``'s lm-population phase, same card)
+    ``vmap`` took 21.8 s a round and peaked at 70.05 GB; one client at a
+    time, 3.6-4.0 s and 58.06 GB; under ``vmap`` the async and gossip
+    rounds (2 and 4 clients at 2 layers) ran out of the card's memory at
+    seq 512 and 256 alike. The MNIST-width tasks keep ``vmap``: one client
+    at a time took 6.0-6.9x its time a round on the main path (8 clients,
+    595-608 ms against 3,624-4,083 ms) and 5.7-6.6x on population N 32
+    C 8 (533-541 against 3,069-3,501 ms), at the same peak (same card,
+    ``scripts/cohort_loop_times.py``)."""
     batched = vmap(fn)
 
     def call(*args):
-        if tree_leaves(args)[0].shape[0] != 1:
+        m = tree_leaves(args)[0].shape[0]
+        if m != 1 and not loop:
             return batched(*args)
-        out = fn(*tree_map(lambda a: a[0], args))
-        return tree_map(lambda a: a.unsqueeze(0), out)
+        if m == 1:
+            out = fn(*tree_map(lambda a: a[0], args))
+            return tree_map(lambda a: a.unsqueeze(0), out)
+        out = None
+        for i in range(m):
+            row = fn(*tree_map(lambda a: a[i], args))
+            if out is None:
+                out = tree_map(lambda a: a.new_empty((m,) + a.shape), row)
+            tree_map(lambda o, a: o[i].copy_(a), out, row)
+            del row
+        return out
     return call
 
 
@@ -101,8 +124,9 @@ def init_client_state(problem: BilevelProblem, fed: FedConfig, xp, yp,
     hg = hypergrad_fn(problem, fed.neumann_k, fed.theta)
     gy = grad_g_y_fn(problem)
     m = k.shape[0]
-    v = per_client(lambda b: gy(xp, yp, b))(_ll_batch(batches))
-    w = per_client(lambda b, kk: hg(xp, yp, b, kk))(batches, k)
+    loop = problem.client_loop
+    v = per_client(lambda b: gy(xp, yp, b), loop)(_ll_batch(batches))
+    w = per_client(lambda b, kk: hg(xp, yp, b, kk), loop)(batches, k)
     return {"x": tree_bcast_axis0(xp, m), "y": tree_bcast_axis0(yp, m),
             "v": v, "w": w}
 
@@ -162,8 +186,9 @@ def storm_refresh(problem: BilevelProblem, fed: FedConfig, states, x_new,
                   y_new, batches, k, alpha, beta):
     """Eqs. (10)-(11): same-sample gradients at new and old params, for all
     clients at once."""
-    hg = per_client(hypergrad_fn(problem, fed.neumann_k, fed.theta))
-    gy = per_client(grad_g_y_fn(problem))
+    hg = per_client(hypergrad_fn(problem, fed.neumann_k, fed.theta),
+                    problem.client_loop)
+    gy = per_client(grad_g_y_fn(problem), problem.client_loop)
     bg = _ll_batch(batches)
     g_new = gy(x_new, y_new, bg)
     g_old = gy(states["x"], states["y"], bg)

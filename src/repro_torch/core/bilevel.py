@@ -42,6 +42,10 @@ class BilevelProblem:
     # optional memory-bounded gradient paths (microbatched accumulation):
     grad_f_xy: Optional[Callable[..., Any]] = None  # (xp,yp,b) -> (gx, gy)
     grad_g_y: Optional[Callable[..., Any]] = None   # (xp,yp,b) -> gy
+    # run the clients' gradients one client at a time, not under vmap
+    # (core/adafbio.per_client): the LM problem's, whose client holds a
+    # working set of gigabytes
+    client_loop: bool = False
 
     @property
     def factored(self) -> bool:
@@ -151,7 +155,8 @@ def lm_bilevel_problem(cfg, ctx, nu: float,
 
     return BilevelProblem(f=f, g=g, features=feats_fn,
                           f_from_feats=f_from_feats, g_from_feats=g_from_feats,
-                          grad_f_xy=grad_f_xy, grad_g_y=grad_g_y)
+                          grad_f_xy=grad_f_xy, grad_g_y=grad_g_y,
+                          client_loop=True)
 
 
 def quadratic_bilevel_problem(H: torch.Tensor, Bm: torch.Tensor,

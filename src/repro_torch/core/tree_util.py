@@ -110,6 +110,17 @@ def tree_bcast_axis0(a, m: int):
         lambda x: x.unsqueeze(0).expand((m,) + tuple(x.shape)).contiguous(), a)
 
 
+def take(d):
+    """A shallow copy of the dict ``d``, which is emptied: a donated
+    argument, whose buffers the callee frees as it replaces them (None
+    passes through)."""
+    if d is None:
+        return None
+    out = dict(d)
+    d.clear()
+    return out
+
+
 def tree_stack(trees):
     """Stack a list of identically-structured trees along a new axis 0."""
     return tree_map(lambda *xs: torch.stack(xs), *trees)

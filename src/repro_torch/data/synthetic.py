@@ -123,19 +123,22 @@ def _materialize(data: FederatedLMData, specs: Dict[str, Any], step: int,
 
 
 def make_client_batch(data: FederatedLMData, cfg, specs: Dict[str, Any],
-                      step: int, device="cpu") -> Dict[str, torch.Tensor]:
+                      step: int, device="cuda") -> Dict[str, torch.Tensor]:
     """One training step's batch matching ``client_batch_specs``, on
-    ``device``: token keys get per-client non-iid samples, modality stubs
-    (precomputed frame/patch embeddings) unit-scale noise times 0.02."""
+    ``device`` (the card unless the caller passes ``device="cpu"``): token
+    keys get per-client non-iid samples, modality stubs (precomputed
+    frame/patch embeddings) unit-scale noise times 0.02."""
     del cfg
+    device = devices.resolve(device)
     m = next(s.shape[0] for s in specs.values())
     return _materialize(data, specs, step, range(m), device)
 
 
 def make_cohort_batch(data: FederatedLMData, cfg, specs: Dict[str, Any],
-                      step: int, ids, device="cpu") -> Dict[str, torch.Tensor]:
+                      step: int, ids, device="cuda") -> Dict[str, torch.Tensor]:
     """Like :func:`make_client_batch` for a sampled cohort: ``specs`` has a
     leading [C] axis and row j holds global client ``ids[j]``'s data."""
     del cfg
+    device = devices.resolve(device)
     ids = ids.tolist() if isinstance(ids, torch.Tensor) else np.asarray(ids)
     return _materialize(data, specs, step, [int(g) for g in ids], device)

@@ -16,17 +16,29 @@ Three codecs, as in the JAX package:
   none   the message is the state itself; ``client_messages`` returns its
          inputs untouched.
   int8   stochastic uniform quantization to ``bits``-bit levels, one f32
-         scale per leaf per client. The whole cohort's message goes through
-         one quantize and one dequantize launch
-         (:func:`repro_torch.kernels.ops.int8_roundtrip_stacked`).
+         scale per leaf per client. The cohort's message goes leaf by leaf:
+         each leaf's ``[C, size]`` delta through one quantize and one
+         dequantize launch over the C rows
+         (:func:`repro_torch.kernels.ops.int8_roundtrip`), 2 launches a
+         leaf a sync.
   topk   per-leaf, per-client magnitude sparsification keeping
          ``round(topk_frac · size)`` entries (at least 1).
 
-The rounding noise of int8 is an input: ``client_messages`` takes it as a
-``[C, n]`` f32 tensor in the packed layout of the message
-(:func:`repro_torch.core.tree_util.tree_pack_stacked`). :class:`CodecNoise`
-draws it on the device from a generator seeded by the run's seed and the
-round; the parity tests fill it from the reference's key chain.
+Leaf by leaf, as the reference goes (one ``quantize_stoch`` and one
+``dequantize`` a leaf), the working set of a message is one leaf's f32
+delta, noise, levels and reconstruction: nothing of the size of the whole
+state is formed in f32 (at language-model width one f32 copy of a client
+state is 9-32 GB). The values are those of packing the message into one
+``[C, n]`` f32 buffer and cutting it into leaf segments: the same
+per-(client, leaf) scale, the same f32 operations element by element, one
+rounding into each leaf's dtype.
+
+The rounding noise of int8 is an input: ``client_messages`` takes a noise
+source ``u(leaf, size) -> [C, size]`` f32 uniform[0, 1), called once per
+leaf in leaf order. :class:`CodecNoise` draws it on the device from a
+generator seeded by the run's seed, the round and the leaf; the parity
+tests fill it from the reference's key chain (one key per client and
+leaf).
 
 Bytes (the reference's documented formulas, per client message):
 
@@ -41,7 +53,6 @@ The server→client broadcast is not compressed: one downlink costs
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Optional, Tuple
 
 import torch
@@ -49,7 +60,7 @@ import torch
 from repro_torch import device as devices
 from repro_torch.configs.base import validate_codec
 from repro_torch.core.tree_util import (tree_leaves, tree_map,
-                                        tree_pack_stacked, tree_unpack_stacked)
+                                        tree_structure, tree_unflatten)
 from repro_torch.kernels import ops
 
 # seed salt of the rounding noise, apart from every other stream of a run
@@ -92,35 +103,41 @@ class Codec:
 
     # -------------------------------------------------- the lossy identity
 
-    def roundtrip_packed(self, flat: torch.Tensor, offsets,
-                         u: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """decode(encode(·)) of a packed ``[C, n]`` f32 message whose leaves
-        start at ``offsets``; ``u`` is the int8 codec's ``[C, n]`` noise."""
-        if not self.lossy:
-            return flat
+    def roundtrip_leaf(self, flat: torch.Tensor,
+                       u: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """decode(encode(·)) of one leaf's ``[C, size]`` f32 rows under a
+        lossy codec (a new tensor, ``flat`` is left as it is); ``u`` is the
+        int8 codec's ``[C, size]`` noise."""
         if self.name == "int8":
             if u is None:
                 raise ValueError("the int8 codec needs its rounding noise u")
-            return ops.int8_roundtrip_stacked(flat, u, offsets, self.qmax)
-        parts = []
-        for a, b in zip(offsets, offsets[1:]):
-            seg = flat[:, a:b]
-            k = _leaf_k(b - a, self.topk_frac)
-            if k < b - a:
-                idx = torch.topk(seg.abs(), k, dim=1).indices
-                seg = torch.zeros_like(seg).scatter(1, idx,
-                                                    seg.gather(1, idx))
-            parts.append(seg)
-        return torch.cat(parts, dim=1)
+            return ops.int8_roundtrip(flat, u, self.qmax)
+        k = _leaf_k(flat.shape[1], self.topk_frac)
+        if k == flat.shape[1]:
+            return flat.clone()
+        idx = torch.topk(flat.abs(), k, dim=1).indices
+        return torch.zeros_like(flat).scatter(1, idx, flat.gather(1, idx))
 
-    def roundtrip(self, tree, u: Optional[torch.Tensor] = None):
+    def leaf_noise(self, u, i: int, size: int) -> Optional[torch.Tensor]:
+        """Leaf ``i``'s ``[C, size]`` noise from the source ``u``; None for
+        the codecs that draw none."""
+        if self.name != "int8" or u is None:
+            return None
+        return u(i, size)
+
+    def roundtrip(self, tree, u=None):
         """decode(encode(tree)) per client of a client-stacked ``[C, ...]``
-        update tree; f32 leaves out."""
+        update tree, leaf by leaf; f32 leaves out. ``u`` is the int8
+        codec's noise source (module docstring)."""
         if not self.lossy:
             return tree
-        flat, spec = tree_pack_stacked(tree)
-        out = self.roundtrip_packed(flat, ops.segment_offsets(spec), u)
-        return tree_unpack_stacked(out, spec.with_dtype(torch.float32))
+        leaves = tree_leaves(tree)
+        out = []
+        for i, leaf in enumerate(leaves):
+            flat = leaf.reshape(leaf.shape[0], -1).float()
+            out.append(self.roundtrip_leaf(
+                flat, self.leaf_noise(u, i, flat.shape[1])).view(leaf.shape))
+        return tree_unflatten(tree_structure(tree), out)
 
     # -------------------------------------------------- bytes accounting
 
@@ -189,49 +206,67 @@ def mask_rows(keep: torch.Tensor, new, old):
 
 @dataclasses.dataclass(frozen=True)
 class CodecNoise:
-    """The int8 codec's rounding noise of a run: for round ``round_id`` and
-    cohort ``ids`` ([C] on the device), a ``[C, n]`` uniform[0, 1) f32
-    tensor drawn on ``device`` from a generator seeded by (seed, round).
-    Row c is the noise of the client in cohort slot c; nothing is copied
-    from the host."""
+    """The int8 codec's rounding noise of a run. ``noise(round_id, ids)``
+    is the noise source of one sync of cohort ``ids`` ([C] on the device):
+    ``(leaf, size) -> [C, size]`` uniform[0, 1) f32, drawn on ``device``
+    from a generator seeded by (seed, round, leaf). Row c is the noise of
+    the client in cohort slot c; nothing is copied from the host."""
     seed: int
     device: Any
 
-    def __call__(self, round_id: int, ids: torch.Tensor,
-                 n: int) -> torch.Tensor:
-        g = devices.generator(self.device, self.seed, _CODEC_SALT, round_id)
-        return torch.rand((ids.shape[0], n), generator=g,
-                          device=self.device)
+    def __call__(self, round_id: int, ids: torch.Tensor):
+        rows = ids.shape[0]
+
+        def leaf(i: int, size: int) -> torch.Tensor:
+            g = devices.generator(self.device, self.seed, _CODEC_SALT,
+                                  round_id, i)
+            return torch.rand((rows, size), generator=g, device=self.device)
+        return leaf
 
 
 # ------------------------------------------------------------ the uplink leg
 
+def _leaf_message(codec: Codec, ref: torch.Tensor, cur: torch.Tensor,
+                  ef: Optional[torch.Tensor], u, i: int):
+    """Leaf ``i`` of the uplink leg: ``(recon, new_ef)`` of its ``[C, ...]``
+    rows (``new_ef`` None without ``ef``). The f32 buffers are one leaf's
+    (13 bytes an element at most): the delta, which becomes the residual
+    in place; the noise and the levels; what was sent, which becomes the
+    reconstruction in place."""
+    c = ref.shape[0]
+    delta = cur.reshape(c, -1).to(torch.float32, copy=True)
+    delta.sub_(ref.reshape(c, -1))
+    if ef is not None:
+        delta.add_(ef.reshape(c, -1))
+    sent = codec.roundtrip_leaf(delta, codec.leaf_noise(u, i, delta.shape[1]))
+    if ef is not None:
+        delta.sub_(sent)                     # e' = (Δ + e) − sent
+    recon = sent.add_(ref.reshape(c, -1)).to(ref.dtype).view(ref.shape)
+    return recon, (delta.view(ref.shape) if ef is not None else None)
+
+
 def client_messages(codec: Optional[Codec], ref, cur, ef=None,
-                    u: Optional[torch.Tensor] = None) -> Tuple[Any, Any]:
-    """The client→server leg for a client-stacked cohort.
+                    u=None) -> Tuple[Any, Any]:
+    """The client→server leg for a client-stacked cohort, leaf by leaf.
 
     ``ref``/``cur`` are [C, ...] trees (the server-known dispatch states and
     the post-local-steps states), ``ef`` the [C, ...] f32 residuals (None
-    when the codec keeps none), ``u`` the int8 codec's ``[C, n]`` noise in
-    the packed layout. Returns ``(recon, new_ef)``: the server-side
-    reconstructions (leaf dtypes of ``ref``) and the updated residuals. A
-    lossless codec returns ``(cur, ef)`` untouched.
+    when the codec keeps none), ``u`` the int8 codec's noise source
+    ``(leaf, size) -> [C, size]``. Returns ``(recon, new_ef)``: the
+    server-side reconstructions (leaf dtypes of ``ref``) and the updated
+    residuals. A lossless codec returns ``(cur, ef)`` untouched.
     """
     if codec is None or not codec.lossy:
         return cur, ef
-    fl_ref, spec = tree_pack_stacked(ref)
-    fl_cur, _ = tree_pack_stacked(cur, spec)
-    delta = fl_cur - fl_ref
-    if ef is not None:
-        delta = delta + tree_pack_stacked(ef, spec)[0]
-    sent = codec.roundtrip_packed(delta, ops.segment_offsets(spec), u)
-    recon = tree_unpack_stacked(fl_ref + sent, spec)
-    if ef is None:
-        return recon, None
-    return recon, tree_unpack_stacked(delta - sent,
-                                      spec.with_dtype(torch.float32))
-
-
-def message_elements(stacked_states) -> int:
-    """Elements of one client's packed message (the noise row length)."""
-    return sum(math.prod(l.shape[1:]) for l in tree_leaves(stacked_states))
+    if codec.name == "int8" and u is None:
+        raise ValueError("the int8 codec needs its rounding noise u")
+    refs, curs = tree_leaves(ref), tree_leaves(cur)
+    efs = tree_leaves(ef) if ef is not None else [None] * len(refs)
+    recon, new_ef = [], []
+    for i, (r, c, e) in enumerate(zip(refs, curs, efs)):
+        rec, res = _leaf_message(codec, r, c, e, u, i)
+        recon.append(rec)
+        new_ef.append(res)
+    structure = tree_structure(ref)
+    return (tree_unflatten(structure, recon),
+            tree_unflatten(structure, new_ef) if ef is not None else None)

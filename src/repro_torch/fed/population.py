@@ -44,7 +44,8 @@ import torch
 
 from repro_torch import device as devices
 from repro_torch.configs.base import DELAY_MODELS, validate_delay_model
-from repro_torch.core.tree_util import tree_bcast_axis0, tree_leaves, tree_map
+from repro_torch.core.tree_util import (take, tree_bcast_axis0, tree_leaves,
+                                        tree_map)
 from repro_torch.fed.topology import as_aggregator, weighted_mean
 
 SYNC_MODES = ("broadcast", "participants")
@@ -167,7 +168,11 @@ def make_population_round(local_step_ids: Callable, sync_update: Callable,
     draws_q, round_id) -> (bank_states, last_sync, server)``: q local steps
     on the C gathered states (``draws_q`` [q, C]), a (staleness-weighted)
     cohort aggregate, the server update, and the write-back that
-    ``sync_mode`` dictates.
+    ``sync_mode`` dictates. The round takes the entries out of the
+    ``bank_states`` (and ``ef_bank``) dicts it is given, as JAX donates
+    buffers: each old tensor is freed as the round replaces it, which at
+    language-model width is the difference between fitting the card and
+    not. A caller that keeps them passes shallow copies.
 
     With a lossy ``codec`` the cohort's messages pass through the codec
     before aggregation (the gathered pre-step state is the server-known
@@ -175,7 +180,8 @@ def make_population_round(local_step_ids: Callable, sync_update: Callable,
     the int8 codec's noise: ``round_fn(bank_states, last_sync, ef_bank,
     server, ids, batches_q, draws_q, round_id, u) -> (bank_states,
     last_sync, ef_bank, server)`` (``ef_bank`` None when error feedback is
-    off, ``u`` the [C, n] noise or None for topk).
+    off, ``u`` the int8 codec's noise source ``(leaf, size) -> [C, size]``
+    or None for topk).
     """
     if sync_mode not in SYNC_MODES:
         raise ValueError(f"sync_mode must be one of {SYNC_MODES}, "
@@ -186,12 +192,10 @@ def make_population_round(local_step_ids: Callable, sync_update: Callable,
     codec = agg.codec
     lossy = codec is not None and codec.lossy
 
-    def run_steps(cur, server, ids, batches_q, draws_q):
-        for j in range(q):
-            cur, server = local_step_ids(
-                cur, server, tree_map(lambda a: a[j], batches_q),
-                draws_q[j], ids)
-        return cur, server
+    def step(cur, server, ids, batches_q, draws_q, j):
+        return local_step_ids(cur, server,
+                              tree_map(lambda a: a[j], batches_q),
+                              draws_q[j], ids)
 
     def write_back(bank_states, last_sync, new_client, ids, round_id):
         if sync_mode == "broadcast":
@@ -203,8 +207,10 @@ def make_population_round(local_step_ids: Callable, sync_update: Callable,
 
     def round_fn(bank_states, last_sync, server, ids, batches_q, draws_q,
                  round_id):
+        bank_states = take(bank_states)
         cur = gather(bank_states, ids)
-        cur, server = run_steps(cur, server, ids, batches_q, draws_q)
+        for j in range(q):              # the gathered rows go after step 0
+            cur, server = step(cur, server, ids, batches_q, draws_q, j)
         w = staleness_weights(last_sync, ids, round_id, staleness_decay)
         new_client, server = agg.reduce(server, cur, weights=w)
         bank_states, last_sync = write_back(bank_states, last_sync,
@@ -216,10 +222,13 @@ def make_population_round(local_step_ids: Callable, sync_update: Callable,
 
     def round_fn_codec(bank_states, last_sync, ef_bank, server, ids,
                        batches_q, draws_q, round_id, u=None):
-        ref = gather(bank_states, ids)   # server-known dispatch states
-        cur, server = run_steps(ref, server, ids, batches_q, draws_q)
+        bank_states, ef_bank = take(bank_states), take(ef_bank)
+        cur = ref = gather(bank_states, ids)   # server-known dispatch states
+        for j in range(q):
+            cur, server = step(cur, server, ids, batches_q, draws_q, j)
         ef_c = gather(ef_bank, ids) if ef_bank is not None else None
         recon, ef_c = agg.messages(ref, cur, ef_c, u)
+        del ref, cur
         if ef_bank is not None:
             ef_bank = scatter(ef_bank, ids, ef_c)
         w = staleness_weights(last_sync, ids, round_id, staleness_decay)
@@ -582,8 +591,10 @@ def make_async_round(local_step_ids: Callable, sync_update: Callable,
          :class:`DelayDraws` of seed 0).
 
     Returns ``round_fn(state, ids, batches_q, draws_q, round_id, u=None) ->
-    (state, stats)`` over the :func:`init_async_state` dict (``draws_q`` the
-    cohort's [q, C] Neumann depths, ``u`` the int8 codec's [C, n] noise).
+    (state, stats)`` over the :func:`init_async_state` dict, whose entries
+    the round takes out of it (a donated argument, as in
+    :func:`make_population_round`) (``draws_q`` the
+    cohort's [q, C] Neumann depths, ``u`` the int8 codec's noise source).
     ``stats`` holds device tensors: ``arrived``/``accepted``/``dropped``
     counts, ``mean_staleness``, ``eta_scale``, ``dispatched`` (unique
     clients that started work), ``synced`` (clients that received the new
@@ -613,11 +624,12 @@ def make_async_round(local_step_ids: Callable, sync_update: Callable,
     def round_fn(state, ids, batches_q, draws_q, round_id: int, u=None):
         draws = (delay_draws if delay_draws is not None
                  else DelayDraws(0, ids.device))
-        bank, pending = state["bank"], state["pending"]
+        state = take(state)
+        bank, pending = state.pop("bank"), state.pop("pending")
         last_sync, in_flight = state["last_sync"], state["in_flight"]
         disp, ret = state["dispatch_round"], state["return_round"]
-        anchor, server = state["anchor"], state["server"]
-        ef = state.get("ef")
+        anchor, server = state.pop("anchor"), state.pop("server")
+        ef = state.pop("ef", None)
         n = last_sync.shape[0]
 
         # 1. arrivals + 2. bounded-staleness gate
@@ -642,6 +654,9 @@ def make_async_round(local_step_ids: Callable, sync_update: Callable,
                               ).to(c.dtype), anchor, new_client)
         server = _tree_where(has, new_server, server)
         anchor = _tree_where(has, new_client, anchor)
+        # the aggregate and the server step's outputs are in the anchor and
+        # server now; a client state each, freed before the dispatch
+        del avg, new_client, new_server
         if sync_mode == "broadcast":
             sync_rows = ~(in_flight & ~arrived)   # everyone not mid-flight
         else:
@@ -656,17 +671,20 @@ def make_async_round(local_step_ids: Callable, sync_update: Callable,
 
         # 4. dispatch the cohort (in-flight members are ineligible)
         eligible = ~in_flight.index_select(0, ids)
-        ref = cur = gather(bank, ids)             # server-known states
+        lossy = agg.codec is not None and agg.codec.lossy
+        cur = gather(bank, ids)
+        ref = cur if lossy else None              # server-known states
         for j in range(draws_q.shape[0]):
             cur, server = local_step_ids(
                 cur, server, tree_map(lambda a: a[j], batches_q),
                 draws_q[j], ids)
-        if agg.codec is not None and agg.codec.lossy:
+        if lossy:
             # the message fixed at send time: what arrives from `pending`
             # is the codec's reconstruction; residuals change only where
             # the dispatch happened
             ef_c = gather(ef, ids) if ef is not None else None
             cur, ef_c = agg.messages(ref, cur, ef_c, u)
+            del ref
             if ef is not None:
                 ef = scatter_where(ef, ids, ef_c, eligible)
         delays = dm.schedule(draws, round_id, n).index_select(0, ids)

@@ -18,16 +18,29 @@ all real at M = 1, and the client mean is the identity. The update kernels
 run over the leaves where they lie (:mod:`repro_torch.kernels.ops`), so a
 step at full width holds bf16 copies of the model and no f32 pack of it.
 
+Population rounds keep N client states in a bank and step a sampled
+cohort of C (:mod:`repro_torch.fed.population`: the synchronous round and
+the asynchronous one); the gossip round steps every node against its own
+server row and mixes over a graph (:mod:`repro_torch.fed.topology`). A
+cohort step runs the C clients' gradients one client at a time (the LM
+problem's ``client_loop``, :func:`repro_torch.core.adafbio.per_client`)
+and the update kernels once over the C rows; its η_t schedule sees the
+population size N.
+Each round takes the entries out of the bank dicts it is given, as JAX
+donates buffers, so that an old bank is freed as the round replaces it.
+
 Randomness is an input: the Neumann depths come from a draw source
 (:class:`NeumannDraws`: step t's depths are a function of (seed, t), as
-the reference folds t into one key every step), the int8 codec's noise from
-a noise source (:class:`repro_torch.fed.compress.CodecNoise`), the data from
-:mod:`repro_torch.data.synthetic`'s draw source. The parity tests fill them
-from the reference.
+the reference folds t into one key every step, one per global client id;
+:func:`round_depths` cuts a round's out for a cohort), the int8 codec's
+noise from a noise source (:class:`repro_torch.fed.compress.CodecNoise`),
+the async delays from a :class:`repro_torch.fed.population.DelayDraws`
+source, the data from :mod:`repro_torch.data.synthetic`'s draw source. The
+parity tests fill them from the reference.
 
 Not ported, and raising ``NotImplementedError`` naming their ROADMAP item:
-a mesh (1f), the population, async and gossip LM rounds (1g) and the
-multi-round (mega-scan) builders (2a).
+a mesh (1f), the multi-round (mega-scan) builders (2a) and the host-spill
+cohort round (2c).
 """
 from __future__ import annotations
 
@@ -41,10 +54,13 @@ from repro_torch.configs.base import ArchConfig, FedConfig, ShapeConfig
 from repro_torch.core.adafbio import warm_adaptive
 from repro_torch.core.baselines import Algorithm, make_algorithm
 from repro_torch.core.bilevel import BilevelProblem, lm_bilevel_problem
-from repro_torch.core.tree_util import (tree_bcast_axis0, tree_index,
+from repro_torch.core.tree_util import (take, tree_bcast_axis0, tree_index,
                                         tree_map, tree_mean_axis0)
 from repro_torch.fed.compress import codec_from_config
-from repro_torch.fed.topology import StarAggregator
+from repro_torch.fed.population import (init_async_state, make_async_round,
+                                        make_population_round)
+from repro_torch.fed.topology import (GossipAggregator, StarAggregator,
+                                      make_gossip_round)
 from repro_torch.models.model import ModelCtx, check_family, model_specs
 from repro_torch.models.params import TensorSpec, init_params, torch_dtype
 
@@ -146,11 +162,16 @@ class NeumannDraws:
         return self._draw(1, t)
 
 
-def _take(d: dict) -> dict:
-    """A shallow copy of ``d``, which is emptied (a donated argument)."""
-    out = dict(d)
-    d.clear()
-    return out
+def round_depths(depths: NeumannDraws, r: int, q: int,
+                 ids: torch.Tensor) -> torch.Tensor:
+    """The [q, C] Neumann depths of round r's local steps for the global
+    client ids ``ids``: step j's at the server counter r(q + 1) + j (one
+    tick a local step and one a sync), each client's by its global id, so
+    a client draws the same depth in a cohort as in the whole population.
+    The asynchronous rounds take the same depths, at the counter a
+    synchronous run would have."""
+    return torch.stack([depths.step(r * (q + 1) + j).index_select(0, ids)
+                        for j in range(q)])
 
 
 def _not_ported(what: str, item: str):
@@ -251,12 +272,28 @@ class FederatedTrainer:
 
     def local_step_fn(self) -> Callable:
         """``step(states, server, batch, k) -> (states, server)``: one local
-        step of every client, ``k`` their [M] Neumann depths."""
-        def step(states, server, batch, k):
+        step of every client, ``k`` their [M] Neumann depths (the cohort
+        step over the whole population, as the reference's)."""
+        step = self.cohort_local_step_fn()
+        return lambda states, server, batch, k: step(states, server, batch,
+                                                     k, None)
+
+    def cohort_local_step_fn(self, n: Optional[int] = None) -> Callable:
+        """``step(states, server, batch, k, ids) -> (states, server)``: one
+        local step of a cohort stacked on a leading [C] axis, ``k`` its [C]
+        Neumann depths (drawn per global id and step t: :func:`
+        round_depths`; ``ids`` is not read again). The η_t schedule sees the
+        population size ``n`` (the paper's M, default the trainer's), not
+        the cohort's width, so a cohort step is the step its clients take
+        in a step of the whole population."""
+        m_sched = n if n is not None else self.m
+
+        def step(states, server, batch, k, ids):
+            del ids
             t = server["t"]
             new_states = self.alg.local_step(
                 states, server["adaptive"], split_client_batch(self.cfg, batch),
-                k, t, self.m)
+                k, t, m_sched)
             new_server = dict(server)
             new_server["t"] = t + 1
             return new_states, new_server
@@ -297,7 +334,7 @@ class FederatedTrainer:
             raise ValueError(f"round needs q >= 1 local steps, got {nq}")
 
         def round_step(states, server, batches_q, k_q):
-            states, server = _take(states), _take(server)
+            states, server = take(states), take(server)
             for j in range(nq):
                 states, server = local(states, server,
                                        tree_index(batches_q, j), k_q[j])
@@ -310,9 +347,9 @@ class FederatedTrainer:
         from) goes through ``FedConfig.codec`` before the mean, with the
         per-client EF residual carried across rounds. ``round(states,
         server, ref, ef, batches_q, k_q, u=None) -> (states, server, ref,
-        ef)``; ``u`` is the int8 codec's [M, n] noise in the message's packed
-        layout; the new ``ref`` is the fresh broadcast. With codec none it
-        is :meth:`round_step_fn`."""
+        ef)``; ``u`` is the int8 codec's noise source of the round
+        (``(leaf, size) -> [M, size]``); the new ``ref`` is the fresh
+        broadcast. With codec none it is :meth:`round_step_fn`."""
         agg = self.star_aggregator()
         local = self.local_step_fn()
         nq = q if q is not None else self.fed.q
@@ -339,43 +376,117 @@ class FederatedTrainer:
                     for i in range(m)]).mean()
         return ev
 
+    # -------------------------------------------------- population mode
+
+    def population_round_fn(self, n: int, q: Optional[int] = None, *,
+                            sync_mode: str = "broadcast",
+                            staleness_decay: float = 0.0) -> Callable:
+        """Gather -> q local steps -> aggregate -> write-back over an
+        n-client bank (:func:`repro_torch.fed.population.
+        make_population_round`): ``round(bank, last_sync, server, ids,
+        batches_q, k_q, round_id)``, ``k_q`` the cohort's [q, C] depths.
+        With a lossy codec: ``round(bank, last_sync, ef_bank, server, ids,
+        batches_q, k_q, round_id, u)``, ``ef_bank`` from
+        :meth:`init_ef_bank` (None with error feedback off) and ``u`` the
+        int8 codec's noise source of the round. The round takes the
+        entries out of the ``bank`` and ``ef_bank`` dicts."""
+        return make_population_round(
+            self.cohort_local_step_fn(n), self.star_aggregator(n),
+            q if q is not None else self.fed.q, sync_mode=sync_mode,
+            staleness_decay=staleness_decay, codec=self.codec)
+
+    def init_async_population_states(self, params, batch, k: torch.Tensor):
+        """Bank init and the async bookkeeping: the :func:`repro_torch.fed.
+        population.init_async_state` dict (bank, pending buffer, flight and
+        staleness vectors, anchor, server, the EF bank with a stateful
+        codec) that :meth:`async_population_round_fn` advances."""
+        bank, _, server = self.init_population_states(params, batch, k)
+        return init_async_state(bank, server, k.shape[0], codec=self.codec)
+
+    def async_population_round_fn(self, n: int, q: Optional[int] = None, *,
+                                  sync_mode: str = "broadcast",
+                                  staleness_decay: float = 0.0,
+                                  max_staleness: float = float("inf"),
+                                  max_delay: int = 1,
+                                  delay_eta: float = 0.0,
+                                  delay_model=None,
+                                  delay_draws=None) -> Callable:
+        """The asynchronous round over an n-client bank: arrivals ->
+        bounded-staleness gate -> delay-adaptive server step ->
+        overlapping-cohort dispatch (:func:`repro_torch.fed.population.
+        make_async_round`). ``delay_model`` a :class:`repro_torch.fed.
+        population.DelayModel` (None: uniform over [1, max_delay]),
+        ``delay_draws`` its draw source. ``round(state, ids, batches_q,
+        k_q, round_id, u=None) -> (state, stats)``; the round takes the
+        entries out of ``state``."""
+        return make_async_round(
+            self.cohort_local_step_fn(n), self.star_aggregator(n),
+            q if q is not None else self.fed.q, sync_mode=sync_mode,
+            staleness_decay=staleness_decay, max_staleness=max_staleness,
+            max_delay=max_delay, delay_eta=delay_eta, delay=delay_model,
+            delay_draws=delay_draws, codec=self.codec)
+
+    # -------------------------------------------------- gossip mode
+
+    def gossip_aggregator(self, n: int, *, topology: str = "ring",
+                          er_p: float = 0.4, seed: int = 0,
+                          time_varying: bool = False,
+                          uniform=None) -> GossipAggregator:
+        """The decentralized sync: a :class:`repro_torch.fed.topology.
+        GossipAggregator` mixing an n-node bank over ``topology`` on the
+        trainer's device (``uniform``: a time-varying graph's draw
+        source)."""
+        return GossipAggregator(
+            sync_update=lambda srv, avg: self.alg.sync_update(srv, avg, n),
+            n=n, topology=topology, er_p=er_p, seed=seed,
+            time_varying=time_varying, codec=self.codec, device=self.device,
+            uniform=uniform)
+
+    def gossip_local_step_fn(self, n: int) -> Callable:
+        """``step(bank, srv_bank, batch, k, ids) -> (bank, srv_bank)``: one
+        local step of every node against its own server row (``srv_bank``
+        stacks the server state on a leading [n] axis: one accumulator a
+        node, which kernel 2 takes per row). The nodes step in lockstep, so
+        their counters are equal and η_t reads node 0's; each advances."""
+        def step(states, srv_bank, batch, k, ids):
+            del ids
+            t = srv_bank["t"]
+            new = self.alg.local_step(
+                states, srv_bank["adaptive"],
+                split_client_batch(self.cfg, batch), k, t[0], n)
+            srv = dict(srv_bank)
+            srv["t"] = t + 1
+            return new, srv
+        return step
+
+    def init_gossip_states(self, params, batch, k: torch.Tensor):
+        """The gossip bank: the population bank, and the star server state
+        (the same init and warm start, one initial consensus) on a leading
+        [n] axis. Returns ``(bank, srv_bank)``."""
+        bank, _, server = self.init_population_states(params, batch, k)
+        return bank, tree_bcast_axis0(server, k.shape[0])
+
+    def gossip_round_fn(self, n: int, q: Optional[int] = None, *,
+                        topology: str = "ring", er_p: float = 0.4,
+                        seed: int = 0, time_varying: bool = False,
+                        uniform=None) -> Callable:
+        """The gossip round (:func:`repro_torch.fed.topology.
+        make_gossip_round`): the mix that closes the previous round, then q
+        local steps. ``round(bank, srv_bank, ef, batches_q, k_q, round_id,
+        u=None, *, n_steps=q, sync_first=True) -> (bank, srv_bank, ef)``;
+        ``ef`` is None unless the codec keeps per-node residuals
+        (:meth:`init_ef_bank`). The round takes the entries out of the
+        three dicts."""
+        agg = self.gossip_aggregator(n, topology=topology, er_p=er_p,
+                                     seed=seed, time_varying=time_varying,
+                                     uniform=uniform)
+        return make_gossip_round(self.gossip_local_step_fn(n), agg,
+                                 q if q is not None else self.fed.q)
+
     # -------------------------------------------------- not ported
-
-    def cohort_local_step_fn(self, n: Optional[int] = None):
-        _not_ported("the LM cohort step", "1g (the LM trainer's population "
-                    "rounds)")
-
-    def population_round_fn(self, n: int, q: Optional[int] = None, **kw):
-        _not_ported("the LM population round", "1g (the LM trainer's "
-                    "population rounds)")
 
     def cohort_round_fn(self, n: int, q: Optional[int] = None, **kw):
         _not_ported("the LM cohort round (host spill)", "2c (fed/spill.py)")
-
-    def init_async_population_states(self, *args, **kw):
-        _not_ported("the LM async population state", "1g (the LM trainer's "
-                    "async rounds)")
-
-    def async_population_round_fn(self, n: int, q: Optional[int] = None,
-                                  **kw):
-        _not_ported("the LM async population round", "1g (the LM trainer's "
-                    "async rounds)")
-
-    def gossip_aggregator(self, n: int, **kw):
-        _not_ported("the LM gossip sync", "1g (the LM trainer's gossip "
-                    "rounds)")
-
-    def gossip_local_step_fn(self, n: int):
-        _not_ported("the LM gossip step", "1g (the LM trainer's gossip "
-                    "rounds)")
-
-    def init_gossip_states(self, *args, **kw):
-        _not_ported("the LM gossip state", "1g (the LM trainer's gossip "
-                    "rounds)")
-
-    def gossip_round_fn(self, n: int, q: Optional[int] = None, **kw):
-        _not_ported("the LM gossip round", "1g (the LM trainer's gossip "
-                    "rounds)")
 
     def multi_population_round_fn(self, n: int, q: Optional[int] = None,
                                   **kw):

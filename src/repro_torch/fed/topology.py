@@ -42,7 +42,7 @@ import torch
 
 from repro_torch import device as devices
 from repro_torch.configs.base import TOPOLOGIES, validate_topology
-from repro_torch.core.tree_util import tree_map, tree_mean_axis0
+from repro_torch.core.tree_util import take, tree_map, tree_mean_axis0
 from repro_torch.fed.compress import Codec, client_messages
 
 # seed salt of the time-varying graph draws
@@ -338,16 +338,22 @@ def make_gossip_round(local_step, agg: GossipAggregator, q: int):
     ends by shipping each node's update through the codec against its
     round-start state (``u`` the int8 noise); the bank row becomes the
     reconstruction, the public copy the next mix reads, and the per-node
-    EF residual keeps the rest."""
+    EF residual keeps the rest. The round takes the entries out of the
+    ``bank``, ``srv_bank`` and ``ef`` dicts it is given (donated, as in
+    :func:`repro_torch.fed.population.make_population_round`)."""
     n = agg.n
+    lossy = agg.codec is not None and agg.codec.lossy
 
     def round_fn(bank, srv_bank, ef, batches_q, draws_q, round_id, u=None,
                  *, n_steps=q, sync_first=True):
+        bank, srv_bank, ef = take(bank), take(srv_bank), take(ef)
         ids = torch.arange(n, device=draws_q.device)
         if sync_first:
             mixed = agg.mix(bank, agg.matrix(round_id - 1))
             bank, srv_bank = agg.server_step(srv_bank, mixed)
-        ref = bank                    # what the previous mix published
+            del mixed
+        # what the previous mix published, the codec's reference
+        ref = bank if lossy else None
         for j in range(n_steps):
             bank, srv_bank = local_step(
                 bank, srv_bank, tree_map(lambda a: a[j], batches_q),

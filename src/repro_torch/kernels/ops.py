@@ -10,9 +10,10 @@ packing into one ``[M, n]`` f32 buffer, the packed kernel and casting back
 to each leaf's dtype. Where the kernel runs follows the tensors' device
 (:mod:`repro_torch.kernels.storm_update`, :mod:`repro_torch.kernels.quantize`).
 
-The int8 codec's round trip works on the packed message (f32, one row a
-client): one quantize and one dequantize launch over every client row and
-every leaf, with one scale per (client, leaf).
+The int8 codec's round trip works on one leaf of the message at a time
+(f32, one row a client): one quantize and one dequantize launch over the
+client rows, with one scale per row (:mod:`repro_torch.fed.compress` goes
+leaf by leaf).
 """
 from __future__ import annotations
 
@@ -23,8 +24,8 @@ from typing import Tuple
 import torch
 
 from repro_torch import device as devices
-from repro_torch.core.tree_util import (TreeBufferSpec, tree_leaves,
-                                        tree_structure, tree_unflatten)
+from repro_torch.core.tree_util import (tree_leaves, tree_structure,
+                                        tree_unflatten)
 from repro_torch.kernels.quantize import dequantize, quantize_stoch
 from repro_torch.kernels.storm_update import (adafbio_update_leaves,
                                               storm_update_leaves)
@@ -70,15 +71,6 @@ def adafbio_update_tree(p, w, a, lr_eta, rho):
 
 # ------------------------------------------------------------ int8 codec
 
-def segment_offsets(spec: TreeBufferSpec) -> Tuple[int, ...]:
-    """Where each leaf starts in a packed row, then the row length: the
-    ``offsets`` of the quantize kernels."""
-    offsets = [0]
-    for shape in spec.shapes:
-        offsets.append(offsets[-1] + math.prod(shape))
-    return tuple(offsets)
-
-
 @functools.lru_cache(maxsize=64)
 def _offset_table(offsets: Tuple[int, ...],
                   device: torch.device) -> torch.Tensor:
@@ -98,14 +90,14 @@ def leaf_scales(flat: torch.Tensor, offsets, qmax: int) -> torch.Tensor:
     return amax.clamp_min(1e-30) / qmax
 
 
-def int8_roundtrip_stacked(flat: torch.Tensor, u: torch.Tensor, offsets,
-                           qmax: int) -> torch.Tensor:
-    """decode(encode(flat)) of the int8 codec over a packed ``[M, n]`` f32
-    buffer whose leaves start at ``offsets`` (a tuple, as
-    :func:`segment_offsets` gives it): the per-(row, leaf) scales, then one
-    quantize and one dequantize launch over all rows and leaves. ``u`` is
-    the ``[M, n]`` uniform[0, 1) rounding noise."""
-    table = _offset_table(tuple(offsets), flat.device)
+def int8_roundtrip(flat: torch.Tensor, u: torch.Tensor,
+                   qmax: int) -> torch.Tensor:
+    """decode(encode(flat)) of the int8 codec over one leaf's ``[M, n]`` f32
+    rows: the per-row scales, then one quantize and one dequantize launch
+    over all rows (a one-segment table). ``u`` is the ``[M, n]``
+    uniform[0, 1) rounding noise."""
+    offsets = (0, flat.shape[1])
+    table = _offset_table(offsets, flat.device)
     scale = leaf_scales(flat, offsets, qmax)
     q = quantize_stoch(flat, u, scale, table, qmax)
     return dequantize(q, scale, table)

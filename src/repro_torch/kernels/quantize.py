@@ -4,12 +4,13 @@ PyTorch wrappers.
 ``quantize_stoch`` and ``dequantize`` replace the Pallas TPU kernels of the
 same names (``src/repro/kernels/quantize.py``). The TPU kernels take one 1-D
 buffer and one scalar scale, so the reference calls them once per leaf per
-client. These take the whole client-stacked message at once: an ``[M, n]``
-buffer (:func:`repro_torch.core.tree_util.tree_pack_stacked`) cut into L
-leaf segments at ``offsets`` ([L+1] int64, 0 to n), with one f32 scale per
+client. These take client-stacked rows: an ``[M, n]`` buffer cut into L
+segments at ``offsets`` ([L+1] int64, 0 to n), with one f32 scale per
 (row, segment) in ``scale`` [M, L]; one launch covers every row and
-segment. The CUDA source is ``csrc/quantize.cu``; both are bound by memory
-(9 and 5 bytes per element).
+segment. The codec (:mod:`repro_torch.fed.compress`) hands them one leaf
+at a time, a one-segment table over the cohort's rows; a packed message
+of many leaves is one call too. The CUDA source is ``csrc/quantize.cu``;
+both are bound by memory (9 and 5 bytes per element).
 
 Dispatch follows the tensors' device: CPU tensors take the plain versions in
 :mod:`repro_torch.kernels.ref`; CUDA tensors launch the kernel or raise

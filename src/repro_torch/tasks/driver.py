@@ -76,8 +76,7 @@ from repro_torch.core.metrics import consensus_error
 from repro_torch.core.tree_util import (tree_bcast_axis0, tree_index,
                                         tree_map, tree_mean_axis0, tree_stack)
 from repro_torch.fed.compress import (CodecNoise, codec_from_config,
-                                      mask_rows, message_elements,
-                                      wire_costs, zeros_ef)
+                                      mask_rows, wire_costs, zeros_ef)
 from repro_torch.fed.population import (ClientPopulation, DelayDraws,
                                         accum_staleness_hist,
                                         accum_tier_hists, broadcast,
@@ -257,11 +256,10 @@ class FedDriver:
     def _transmitters(self, mask: Optional[torch.Tensor]) -> int:
         return self.n_clients if mask is None else int(mask.sum())
 
-    def _codec_noise(self, noise, round_id: int, ids: torch.Tensor,
-                     n: int) -> Optional[torch.Tensor]:
-        """The int8 codec's [C, n] rounding noise of a sync, or None for the
-        codecs that draw none."""
-        return noise(round_id, ids, n) if self.codec.name == "int8" else None
+    def _codec_noise(self, noise, round_id: int, ids: torch.Tensor):
+        """The int8 codec's noise source of a sync (``(leaf, size) -> [C,
+        size]``), or None for the codecs that draw none."""
+        return noise(round_id, ids) if self.codec.name == "int8" else None
 
     def _local_body(self, states, server, batches, k, active=None):
         t = server["t"]
@@ -348,8 +346,9 @@ class FedDriver:
             delay_draws: Optional[Any] = None,
             graph_draws: Optional[Callable] = None) -> RunResult:
         """Run ``total_steps`` local steps. ``draws`` defaults to
-        :meth:`draws`, ``noise`` (``(round_id, ids, n) -> [C, n]``) to a
-        :class:`CodecNoise` of ``seed`` on the run's device, ``delay_draws``
+        :meth:`draws`, ``noise`` (``(round_id, ids)`` -> a sync's noise
+        source, ``(leaf, size) -> [C, size]``) to a :class:`CodecNoise` of
+        ``seed`` on the run's device, ``delay_draws``
         (the async delays) to a :class:`DelayDraws` of ``seed``, and
         ``graph_draws`` (``round_id -> [n, n]`` uniform, a time-varying
         gossip graph) to a generator of ``population.topology_seed``."""
@@ -384,8 +383,7 @@ class FedDriver:
         msg_b, down_b = wire_costs(self.codec, states)
         bytes_up = bytes_down = 0
         ref, ef = states, zeros_ef(self.codec, states)   # server-known init
-        ids, n_msg = (torch.arange(m, device=self.device),
-                      message_elements(states))
+        ids = torch.arange(m, device=self.device)
 
         res = RunResult(self.alg.name, [], [], [], [], [], 0.0)
         t0 = time.time()
@@ -412,7 +410,7 @@ class FedDriver:
             if t > 0 and t % fed.q == 0:
                 states, server, ref, ef = self._sync_body(
                     states, server, active_prev, ref, ef,
-                    self._codec_noise(noise, rnd - 1, ids, n_msg))
+                    self._codec_noise(noise, rnd - 1, ids))
                 comms += 1
                 up, down = agg.wire_round(
                     msg_b, down_b, tx=self._transmitters(mask_prev), rx=m)
@@ -457,8 +455,7 @@ class FedDriver:
         msg_b, down_b = wire_costs(self.codec, states)
         bytes_up = bytes_down = 0
         ref, ef = states, zeros_ef(self.codec, states)
-        ids, n_msg = (torch.arange(m, device=self.device),
-                      message_elements(states))
+        ids = torch.arange(m, device=self.device)
 
         full, rem = divmod(total_steps, q)
         lengths = [q] * full + ([rem] if rem else [])
@@ -475,7 +472,7 @@ class FedDriver:
                          active_prev=self._on_device(mask_prev))
             kw = dict(n_steps=n_steps, sync_first=r > 0, **masks)
             r0 = time.time()
-            u = (self._codec_noise(noise, r - 1, ids, n_msg) if r > 0
+            u = (self._codec_noise(noise, r - 1, ids) if r > 0
                  else None)
             states, server, ref, ef = self.round_segment(
                 states, server, ref, ef, batches_q,
@@ -575,7 +572,6 @@ class FedDriver:
         msg_b, down_b = wire_costs(self.codec, bank)
         bytes_up = bytes_down = 0
         ef = zeros_ef(self.codec, bank)
-        n_msg = message_elements(bank)
 
         full, rem = divmod(total_steps, q)
         lengths = [q] * full + ([rem] if rem else [])
@@ -597,7 +593,7 @@ class FedDriver:
             r0 = time.time()
             bank, last_sync, ef, server = self.population_segment(
                 bank, last_sync, ef, server, prev_ids, ids, batches_q,
-                draws_q, r, self._codec_noise(noise, r, ids, n_msg),
+                draws_q, r, self._codec_noise(noise, r, ids),
                 n_steps=n_steps, sync_first=r > 0)
             devices.fence(self.device)
             self._log_round(res, time.time() - r0)
@@ -696,7 +692,6 @@ class FedDriver:
         bytes_up = bytes_down = 0
         ef = zeros_ef(self.codec, bank)
         ids = torch.arange(n, device=self.device)
-        n_msg = message_elements(bank)
         round_fn = make_gossip_round(self._gossip_local_step(n), agg, q)
         # static graphs price once; time-varying ones per round
         static_edges = None if pcfg.time_varying else agg.edges(0)
@@ -709,7 +704,7 @@ class FedDriver:
         t = 0
         for r, n_steps in enumerate(lengths):
             batches_q = stack_round_batches(self.batches, t, n_steps)
-            u = self._codec_noise(noise, r, ids, n_msg)
+            u = self._codec_noise(noise, r, ids)
             r0 = time.time()
             bank, srv_bank, ef = round_fn(
                 bank, srv_bank, ef, batches_q, draws.steps[t:t + n_steps], r,
@@ -765,7 +760,6 @@ class FedDriver:
         comms = 0
         msg_b, down_b = wire_costs(self.codec, pop.states)
         bytes_up = bytes_down = 0
-        n_msg = message_elements(pop.states)
         self.staleness_log: List[Dict[str, float]] = []
         self.staleness_hist = np.zeros(0, np.int64)
         self.staleness_hist_by_tier: Dict[int, Any] = {}
@@ -791,7 +785,7 @@ class FedDriver:
             batches_q = tree_stack([self.batches(t + j, ids_host)
                                     for j in range(n_steps)])
             draws_q = draws.steps[t:t + n_steps].index_select(1, ids)
-            u = self._codec_noise(noise, r, ids, n_msg)
+            u = self._codec_noise(noise, r, ids)
             r0 = time.time()
             state, stats = round_fn(state, ids, batches_q, draws_q, r, u)
             devices.fence(self.device)

@@ -249,7 +249,7 @@ def test_async_round_matches_reference():
                                 for j in range(Q)])
         t_ids = torch.tensor(ids)
         state, stats = port_round(state, t_ids, to_torch(batches), draws_q,
-                                  r, noise(r, t_ids, sum(QUAD_SIZES)))
+                                  r, noise(r, t_ids))
         for k in ref_stats:
             np.testing.assert_array_equal(
                 np.asarray(stats[k].numpy(), np.float32),

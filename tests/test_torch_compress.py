@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_harness import (assert_trees_close, reference_codec_noise,
-                                to_jax, to_torch)
+from test_torch_harness import (ReferenceNoise, assert_trees_close, to_jax,
+                                to_torch)
 
 import jax  # noqa: E402  (after the harness: it shims jax first)
 import jax.numpy as jnp  # noqa: E402
@@ -95,9 +95,7 @@ def test_int8_roundtrip_matches_reference(bits):
     codec = compress.make_codec("int8", bits=bits)
     ref_codec = ref_compress.make_codec("int8", bits=bits)
     base = jax.random.fold_in(jax.random.fold_in(KEY, 0xC0DEC), 3)
-    u = torch.from_numpy(np.stack([reference_codec_noise(KEY, 3, g,
-                                                         _sizes(tree))
-                                   for g in ids]))
+    u = ReferenceNoise(KEY, _sizes(tree))(3, torch.tensor(ids))
     got = codec.roundtrip(to_torch(tree), u)
     for i, g in enumerate(ids):
         want = ref_codec.roundtrip(jax.random.fold_in(base, g),
@@ -127,8 +125,7 @@ def test_client_messages_match_reference(name, kw, ef_on):
           for t in (ref_tree, cur_tree, ef_tree)))
     u = None
     if name == "int8":
-        u = torch.from_numpy(np.stack([reference_codec_noise(
-            KEY, 6, int(g), _sizes(ref_tree)) for g in ids]))
+        u = ReferenceNoise(KEY, _sizes(ref_tree))(6, torch.from_numpy(ids))
     got = compress.client_messages(
         codec, to_torch(ref_tree), to_torch(cur_tree),
         to_torch(ef_tree) if ef_on else None, u)
@@ -160,8 +157,7 @@ def test_error_feedback_telescopes(name):
     ref_t, cur_t = to_torch(_client_trees(5)), to_torch(_client_trees(6))
     ef = tree_map(lambda a: 0.05 * a, to_torch(_client_trees(7)))
     codec = compress.make_codec(name, topk_frac=0.2)
-    n = compress.message_elements(ref_t)
-    u = torch.rand((3, n), generator=torch.Generator().manual_seed(0))
+    u = compress.CodecNoise(0, "cpu")(0, torch.arange(3))
     recon, ef_new = compress.client_messages(codec, ref_t, cur_t, ef, u)
     for r, c, e, e2, x in zip(*(jax.tree.leaves(t) for t in (
             ref_t, cur_t, ef, ef_new, recon))):
@@ -216,11 +212,14 @@ def test_codec_validation_and_ef_helpers():
 
 
 def test_codec_noise_is_seeded_by_run_and_round():
+    """A sync's noise source gives each leaf ``[C, size]`` uniform[0, 1)
+    draws, a function of (seed, round, leaf)."""
     ids = torch.arange(3)
-    a = compress.CodecNoise(0, "cpu")(2, ids, 10)
+    a = compress.CodecNoise(0, "cpu")(2, ids)(1, 10)
     assert a.shape == (3, 10) and a.dtype == torch.float32
     assert ((a >= 0) & (a < 1)).all()
-    torch.testing.assert_close(compress.CodecNoise(0, "cpu")(2, ids, 10), a,
-                               rtol=0, atol=0)
-    assert not torch.equal(compress.CodecNoise(0, "cpu")(3, ids, 10), a)
-    assert not torch.equal(compress.CodecNoise(1, "cpu")(2, ids, 10), a)
+    torch.testing.assert_close(compress.CodecNoise(0, "cpu")(2, ids)(1, 10),
+                               a, rtol=0, atol=0)
+    assert not torch.equal(compress.CodecNoise(0, "cpu")(3, ids)(1, 10), a)
+    assert not torch.equal(compress.CodecNoise(1, "cpu")(2, ids)(1, 10), a)
+    assert not torch.equal(compress.CodecNoise(0, "cpu")(2, ids)(0, 10), a)

@@ -271,14 +271,16 @@ def test_int8_codec_makes_one_launch_each_per_message(cuda):
                                         "d": ref_t["b"]["d"] - 2.0}}
     codec = compress.make_codec("int8")
     ef = compress.zeros_ef(codec, ref_t)
-    u = torch.rand((m, compress.message_elements(ref_t)), device=cuda)
+    # the message goes leaf by leaf: one quantize and one dequantize
+    # launch over the m rows of each of its 3 leaves
+    u = compress.CodecNoise(0, cuda)(0, torch.arange(m, device=cuda))
     qkern.reset_launches()
     recon, ef2 = compress.client_messages(codec, ref_t, cur, ef, u)
-    assert qkern.launches == {"quantize_stoch": 1, "dequantize": 1}
+    assert qkern.launches == {"quantize_stoch": 3, "dequantize": 3}
     def cpu(t):
         return tree_map(lambda a: a.cpu(), t)
     want = compress.client_messages(codec, cpu(ref_t), cpu(cur), cpu(ef),
-                                    u.cpu())
+                                    lambda i, size: u(i, size).cpu())
     for got_t, want_t in zip((recon, ef2), want):
         for a, b in zip(tree_leaves(got_t), tree_leaves(want_t)):
             torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=1e-6)

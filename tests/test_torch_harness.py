@@ -104,30 +104,43 @@ def quadratic_pair(seed=0, d=8, p=6):
     return (H, Bm, c, Q_), float(1.0 / np.linalg.eigvalsh(H)[-1])
 
 
-def reference_codec_noise(key, round_id: int, gid: int, sizes):
-    """The int8 codec's noise of client ``gid`` at ``round_id`` in the
-    reference, flattened in leaf order: ``fold_in(fold_in(fold_in(key,
-    0xC0DEC), round_id), gid)`` (fed/compress.py:239, :248), split into one
-    key per leaf (:121), one ``uniform`` per leaf."""
+def reference_leaf_keys(key, round_id: int, gid: int, n_leaves: int):
+    """The int8 codec's noise keys of client ``gid`` at ``round_id`` in the
+    reference, one a leaf: ``fold_in(fold_in(fold_in(key, 0xC0DEC),
+    round_id), gid)`` (fed/compress.py:239, :248) split over the leaves
+    (:121)."""
     k = jax.random.fold_in(jax.random.fold_in(
         jax.random.fold_in(key, 0xC0DEC), round_id), gid)
-    keys = jax.random.split(k, max(len(sizes), 1))
+    return jax.random.split(k, max(n_leaves, 1))
+
+
+def reference_codec_noise(key, round_id: int, gid: int, sizes):
+    """The reference's noise of client ``gid`` at ``round_id``, one
+    ``uniform`` a leaf, flattened in leaf order."""
+    keys = reference_leaf_keys(key, round_id, gid, len(sizes))
     return np.concatenate([np.asarray(jax.random.uniform(kk, (s,)))
                            for kk, s in zip(keys, sizes)])
 
 
 class ReferenceNoise:
-    """The port's noise source (``(round_id, ids, n) -> [C, n]``) filled
-    from the reference's key chain, for leaves of ``sizes`` elements."""
+    """The port's noise source filled from the reference's key chain, for
+    leaves of ``sizes`` elements: ``(round_id, ids)`` gives the sync's
+    ``(leaf, size) -> [C, size]``, row c from client ``ids[c]``'s key of
+    that leaf."""
 
     def __init__(self, key, sizes):
         self.key, self.sizes = key, list(sizes)
 
-    def __call__(self, round_id, ids, n):
-        assert n == sum(self.sizes), (n, self.sizes)
-        rows = [reference_codec_noise(self.key, round_id, g, self.sizes)
+    def __call__(self, round_id, ids):
+        keys = [reference_leaf_keys(self.key, round_id, g, len(self.sizes))
                 for g in ids.cpu().tolist()]
-        return torch.from_numpy(np.stack(rows)).to(ids.device)
+
+        def leaf(i, size):
+            assert size == self.sizes[i], (i, size, self.sizes)
+            rows = [np.asarray(jax.random.uniform(k[i], (size,)))
+                    for k in keys]
+            return torch.from_numpy(np.stack(rows)).to(ids.device)
+        return leaf
 
 
 class ReplaySampler(CohortSampler):

@@ -74,3 +74,12 @@ def test_entry_points_default_to_the_card():
         load_serve_params("missing", reduced(get_arch("qwen1.5-4b")))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_checkpoint("missing", {"a": TensorSpec((2,), torch.float32)})
+    from repro_torch.data.synthetic import (FederatedLMData,
+                                            make_client_batch,
+                                            make_cohort_batch)
+    data = FederatedLMData(vocab=8, n_clients=2)
+    specs = {"tokens": TensorSpec((2, 1, 4), torch.int32)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_client_batch(data, None, specs, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_cohort_batch(data, None, specs, 0, [1, 0])

@@ -20,7 +20,6 @@ from repro.core.tree_util import tree_stack as ref_stack  # noqa: E402
 from repro.models.params import init_params as ref_init  # noqa: E402
 from repro_torch.core.tree_util import (tree_index, tree_leaves,  # noqa: E402
                                         tree_stack)
-from repro_torch.fed.compress import message_elements  # noqa: E402
 
 # bf16 runs against the f32 witness, as chip_smoke.py's bf16 serve checks:
 # the port no farther than twice the reference's distance (plus 2e-2)
@@ -88,7 +87,7 @@ def test_codec_leg_matches_reference_on_the_same_states():
     want = jax.jit(lambda r, c, e: ref_tr.star_aggregator().messages(
         L.KEY, jnp.int32(1), jnp.arange(1), r, c, e))(rs, cur, ef)
     sizes = [t[0].numel() for t in tree_leaves(to_torch(rs))]
-    u = ReferenceNoise(L.KEY, sizes)(1, torch.arange(1), sum(sizes))
+    u = ReferenceNoise(L.KEY, sizes)(1, torch.arange(1))
     got = tr.star_aggregator().messages(to_torch(rs), to_torch(cur),
                                         to_torch(ef), u)
     L.assert_rel(got[0], want[0], 1e-6, "reconstruction")
@@ -112,7 +111,7 @@ def test_codec_round_int8_with_error_feedback_matches_reference():
     rs, rv, _, r_ef = jax.jit(ref_tr.round_step_codec_fn())(
         rs, rv, rs, r_ef, rb, L.KEY, jnp.int32(0))
     sizes = [t[0].numel() for t in tree_leaves(ps)]
-    u = ReferenceNoise(L.KEY, sizes)(0, torch.arange(1), message_elements(ps))
+    u = ReferenceNoise(L.KEY, sizes)(0, torch.arange(1))
     ps, pv, _, p_ef = tr.round_step_codec_fn()(ps, pv, ps, p_ef, pb, k_q, u)
     L.assert_rel(ps, rs, CODEC_REL, "codec round")
     L.assert_server(pv, rv, "codec round server")

@@ -451,11 +451,9 @@ def test_trainer_per_leaf_path_matches_reference():
 
 def test_not_ported_builders_name_their_roadmap_item():
     _, tr = _trainers()
-    for call, item in ((lambda: tr.population_round_fn(4), "1g"),
-                       (lambda: tr.gossip_round_fn(4), "1g"),
-                       (lambda: tr.async_population_round_fn(4), "1g"),
-                       (lambda: tr.cohort_local_step_fn(4), "1g"),
-                       (lambda: tr.multi_population_round_fn(4), "2a"),
+    for call, item in ((lambda: tr.multi_population_round_fn(4), "2a"),
+                       (lambda: tr.multi_async_population_round_fn(4), "2a"),
+                       (lambda: tr.multi_gossip_round_fn(4), "2a"),
                        (lambda: tr.cohort_round_fn(4), "2c")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
             call()

@@ -329,7 +329,7 @@ def test_population_round_participants_int8_matches_reference():
                               to_jax(batches), KEY, jnp.int32(r))
         t_ids = torch.tensor(ids)
         port_state = port_round(*port_state, t_ids, to_torch(batches),
-                                draws_q, r, noise(r, t_ids, sum(QUAD_SIZES)))
+                                draws_q, r, noise(r, t_ids))
     for what, got, want in zip(("bank", "last_sync", "ef", "server"),
                                port_state, ref_state):
         assert_trees_close(got, want, rtol=1e-5, atol=1e-5, what=what)
@@ -474,8 +474,9 @@ class _Int8Levels:
     The reference's levels are read by a ``jax.debug.callback`` on its
     quantize op; the callbacks come per client and per leaf, so each is
     placed by its noise, which is unique to (round, client, leaf). The
-    port's quantize launch (all clients and leaves at once) is compared row
-    by row with the reference's levels of the same round and client. With
+    port's quantize launches (one a leaf, over the clients' rows) are
+    compared row by row with the reference's levels of the same round,
+    client and leaf. With
     ``replay`` the port goes on with the reference's levels, so that a level
     that one f32 rounding difference put one step apart does not carry into
     the rest of the run."""
@@ -517,13 +518,11 @@ class _Int8Levels:
     def _port_levels(self, q, u, x, scale):
         rows = []
         for c in range(q.shape[0]):
-            r, g, _ = self.where[u[c, :self.sizes[0]].numpy().tobytes()]
-            ref_q, ref_v = (torch.from_numpy(np.concatenate(
-                [self.ref_q[(r, g, leaf)][i] for leaf in range(
-                    len(self.sizes))])) for i in (0, 1))
+            r, g, leaf = self.where[u[c].numpy().tobytes()]
+            ref_q, ref_v = (torch.from_numpy(np.array(a))
+                            for a in self.ref_q[(r, g, leaf)])
             # x / scale before the noise is added, as both oracles divide
-            v = torch.cat([x[c, a:b] / scale[c, leaf] for leaf, (a, b) in
-                           enumerate(zip(self.offsets, self.offsets[1:]))])
+            v = x[c] / scale[c, 0]
             diff = (q[c].int() - ref_q.int()).abs()
             # the expected count of levels apart: u is shared, so an entry
             # whose x / scale differ by d < 1 straddles an integer with

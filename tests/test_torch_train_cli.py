@@ -2,7 +2,10 @@
 CPU at ``reduced(qwen1.5-4b)``: two scan rounds write a checkpoint that the
 port's serve launcher serves and the reference's bridge reads; a resumed
 run equals an uninterrupted one; the eager engine and the int8 codec round
-run; the flags that need a later part of the port raise naming their
+run; the population (codec none and int8), async and gossip modes run,
+bill the bytes their pricing gives and resume equal to an uninterrupted
+run, and the bridge serves a population checkpoint and refuses an async
+one; the flags that need a later part of the port raise naming their
 ROADMAP item; the README's flag table matches the argparse."""
 import importlib.util
 import pathlib
@@ -83,9 +86,84 @@ def test_eager_engine_and_codec_round_run(tmp_path):
         train_cli.main(SMALL + ["--codec", "int8", "--engine", "eager"])
 
 
+# the population modes: (flags, the run's state keys compared on resume)
+MODES = {
+    "population": (["--population", "4", "--cohort", "2"],
+                   ("bank", "last_sync", "server")),
+    "population-int8": (["--population", "4", "--cohort", "2", "--codec",
+                         "int8"], ("bank", "last_sync", "ef", "server")),
+    "async": (["--population", "4", "--cohort", "2", "--max-staleness", "2",
+               "--delay-model", "tiers", "--tiers", "0.5:1:1,0.5:2:3"],
+              ("state",)),
+    "gossip": (["--population", "4", "--engine", "gossip", "--topology",
+                "complete", "--codec", "int8"], ("bank", "srv_bank", "ef"))}
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_population_modes_run_and_resume(mode, tmp_path, capsys):
+    """Each mode runs 2 rounds of q = 2, prints its wire totals (equal to
+    the run's message and downlink prices times the messages it billed),
+    and a run resumed from its checkpoint after round 0 ends equal, bit
+    for bit, to an uninterrupted one: the draws are functions of the seed,
+    the round and the global client id."""
+    flags, keys = MODES[mode]
+    ck = str(tmp_path / "ck")
+    train_cli.main(SMALL + flags + ["--steps", "2", "--ckpt", ck])
+    resumed = train_cli.main(SMALL + flags + ["--steps", "4", "--ckpt", ck,
+                                              "--resume"])
+    whole = train_cli.main(SMALL + flags + ["--steps", "4"])
+    out = capsys.readouterr().out
+    assert resumed["step"] == whole["step"] == 4
+    assert f"wire totals ({'int8' if 'int8' in flags else 'none'}): " \
+        f"bytes_up={whole['bytes_up']} bytes_down={whole['bytes_down']}" \
+        in out
+    assert all(np.isfinite(whole["losses"]))
+    msg_b, down_b = whole["wire"]
+    if mode.startswith("population"):
+        # two rounds, two distinct clients a cohort, broadcast to all 4
+        assert (whole["bytes_up"], whole["bytes_down"]) == (
+            2 * 2 * msg_b, 2 * 4 * down_b)
+    elif mode == "gossip":
+        # one mix (round 1's, closing round 0) over 12 directed edges
+        assert whole["bytes_up"] == whole["bytes_down"] == 12 * msg_b
+    else:
+        log = whole["log"]
+        assert whole["bytes_up"] == sum(r["arrived"] for r in log) * msg_b
+        assert whole["bytes_down"] == sum(r["synced"] for r in log) * down_b
+        assert "accepted-staleness histogram (rounds):" in out
+        assert "tier 0 (delay 1..1, 2 clients)" in out
+    for key in keys:
+        for a, b in zip(tree_leaves(resumed[key]), tree_leaves(whole[key])):
+            assert torch.equal(a, b), (mode, key)
+
+
+def test_bridge_serves_population_checkpoints_and_refuses_async(tmp_path):
+    """The bridge reads a population checkpoint (with and without the EF
+    bank) as its bank's client mean, and refuses an async one, as the
+    reference's does."""
+    cfg = reduced(get_arch("qwen1.5-4b"))
+    for mode, codec, layout in (("population", "none", "population"),
+                                ("population-int8", "int8",
+                                 "population+ef")):
+        ck = str(tmp_path / mode)
+        run = train_cli.main(SMALL + MODES[mode][0] + ["--steps", "2",
+                                                       "--ckpt", ck])
+        params, info = bridge.load_serve_params(ck, cfg, codec=codec,
+                                                device="cpu")
+        assert info == {"layout": f"{layout}[adaptive=adam]", "clients": 4,
+                        "step": 2}
+        for a, b in zip(tree_leaves(params), tree_leaves(
+                {"x": run["bank"]["x"], "y": run["bank"]["y"]})):
+            assert torch.equal(a, b.mean(dim=0))
+    ck = str(tmp_path / "async")
+    train_cli.main(SMALL + MODES["async"][0] + ["--steps", "2", "--ckpt",
+                                                ck])
+    with pytest.raises(ValueError, match="async-engine checkpoints are not "
+                                         "servable"):
+        bridge.load_serve_params(ck, cfg, device="cpu")
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--population", "8"], "1g"), (["--engine", "gossip"], "1g"),
-    (["--max-staleness", "2"], "1g"), (["--topology", "complete"], "1g"),
     (["--mesh", "local"], "1f"), (["--rounds-per-scan", "2"], "2a"),
     (["--metrics-out", "m.jsonl"], "2b"), (["--profile", "p"], "2b"),
     (["--spill", "host"], "2c")])
