@@ -82,7 +82,22 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
    counts (storm 2 a local step, adafbio 1 a local step and 1 a sync), one
    launch a tree-level call, finite losses and eager == scan bit for bit;
    prints steady ms a step and a round, LL tokens/s, the model FLOP rate,
-   peak memory and the update kernels' ms inside a step;
+   peak memory and the update kernels' ms inside a step. Every layer of
+   the training forward runs under remat (``models/remat.py``), as the
+   reference's under ``jax.checkpoint``;
+11b. lm-train-zamba2-1.2b (38 mamba2 layers and the shared block, full
+   width and depth) and lm-train-falcon-mamba-7b (full width, the depth
+   by the cut rule: 32 layers, or 16 where the peak passes LM_PEAK_GB or
+   the card runs out of memory; FALCON_STEPS steps, one scan round): the
+   shape and checks of item 11 at LM_FAMILY_FED (item 11's FedConfig at
+   rho 1e-2 and theta 0.1: at item 11's own both families diverge
+   within a round), every state leaf finite after every step, sync and
+   round (the port's SSD masks before its exponential, where the
+   reference's gradient is NaN); then both
+   families at reduced size, one local step and one sync on the card
+   against the CPU from the same draws (LM_FAMILY_PARITY_REL), and the
+   remat'd layer against the direct layer on the card, one layer of each
+   family at full width: features and gradients bit for bit;
 12. train-ckpt-serve: the port's train CLI on reduced qwen1.5-4b on the
    card (scan, 8 steps, a checkpoint in 2 shards), ``--resume`` for one
    more round, then the serve CLI on 4 requests from the checkpoint: the
@@ -346,6 +361,32 @@ LM_ARCH = "qwen1.5-4b"
 LM_SEQ, LM_BATCH = 1024, 8
 LM_FED = dict(q=4, neumann_k=2, lr_x=1e-2, lr_y=1e-1)
 LM_STEPS = 8                   # eager 8 steps; scan 2 rounds of q = 4
+# The ssm and hybrid families' trainers (lm_family_phase), at their full
+# width with LM_FAMILY_FED and LM_SEQ x LM_BATCH: zamba2-1.2b at full depth
+# (38 layers) for LM_STEPS; falcon-mamba-7b at the first depth of
+# FALCON_DEPTHS that one card holds, for FALCON_STEPS (one scan round of
+# q 4; its step takes ~12 s, so the phase takes about 2 minutes).
+# LM_FAMILY_FED is LM_FED at rho 1e-2 and theta 0.1. At LM_FED both
+# families diverge within a round (PERF.md, section 6): the Neumann step
+# theta 1 exceeds 1/L_g, so the first depth-1 step multiplies
+# falcon-mamba-7b's hypergradient by ~10^4 (w 2.6 -> 7.0e4; non-finite
+# after step 2, at rho 1e-2), and at the launcher's rho 1e-4 the warm
+# start's a = w_0^2 (refreshed only at a sync) lets an element whose first
+# hypergradient was ~0 step by up to lr / rho times its w (zamba2-1.2b
+# non-finite after step 3; scripts/lm_train_diag.py shows both); the
+# reference's own launcher on reduced falcon-mamba-7b at seq 1024 reaches
+# f = nan at step 4 on the CPU. The MNIST-width phases run theta 0.1 for
+# the same reason (CHECK_THETA, HC_THETA), and the tests hold free runs at
+# rho 1e-2 (tests/test_torch_lm_train.py: RHO).
+LM_FAMILY_FED = dict(LM_FED, rho=1e-2, theta=0.1)
+FALCON_DEPTHS = (32, 16)
+FALCON_STEPS = 4
+# the same trainers at reduced size, card against CPU (lm_family_parity):
+# 2 training sequences of 512 tokens (2 scan chunks each), within the
+# CPU tests' per-stage limit against the reference
+# (tests/test_torch_lm_train.py: TRAIN_REL)
+LM_FAMILY_PARITY_SEQ = 512
+LM_FAMILY_PARITY_REL = 1e-4
 # the leaf-table entries against the packed f32 entries and the per-leaf
 # plain versions (leaf_table_phase): qwen1.5-4b's x tree cut to this depth
 LEAF_CUT_LAYERS = 2
@@ -2310,15 +2351,19 @@ def lm_step_flops(cfg, fed, seq, batch):
     return 2 * gy + 2 * hg
 
 
-def lm_train_phase(torch, kerns, seq=LM_SEQ):
-    """lm-train-qwen1.5-4b: FederatedTrainer on qwen1.5-4b at full width and
-    depth (3.56 B x and 0.39 B y parameters, bf16 from a seed), eager for
-    LM_STEPS local steps and scan for LM_STEPS / q rounds from the same
-    init, batches and Neumann draws: exact launch counts (storm 2 a local
-    step, adafbio 1 a local step and 1 a sync), one launch a tree-level
-    call, finite losses, eager == scan leaf by leaf; prints steady ms a
-    step and a round, LL tokens/s, the model FLOP rate, peak memory and the
-    two kernels' ms inside a step. Returns the launches of both engines."""
+def lm_train_phase(torch, kerns, cfg=None, steps=LM_STEPS, seq=LM_SEQ,
+                   fed_kw=LM_FED):
+    """lm-train-<arch>: FederatedTrainer on ``cfg`` (qwen1.5-4b at full width
+    and depth by default; bf16 params from a seed, one client), eager for
+    ``steps`` local steps and scan for ``steps / q`` rounds from the same
+    init, batches and Neumann draws: every state leaf finite after every
+    step, sync and round, exact launch counts (storm 2 a local step,
+    adafbio 1 a local step and 1 a sync), one launch a tree-level call,
+    finite losses, eager == scan leaf by leaf; prints steady ms a step and
+    a round, LL tokens/s, the model FLOP rate (dense family), peak memory
+    and the two kernels' ms inside a step. Each layer runs under remat
+    (``models/remat.py``), as the training forward always does. Returns
+    the launches of both engines and the numbers."""
     from repro_torch import device as devlib
     from repro_torch.configs import FedConfig, ShapeConfig, get_arch
     from repro_torch.core.tree_util import tree_leaves, tree_map, tree_stack
@@ -2329,8 +2374,18 @@ def lm_train_phase(torch, kerns, seq=LM_SEQ):
     from repro_torch.launch.train import PARAM_SALT, server_step
     from repro_torch.models import model_specs, param_count
 
-    cfg = get_arch(LM_ARCH)
-    fed = FedConfig(**LM_FED)
+    cfg = cfg or get_arch(LM_ARCH)
+    name = f"lm-train-{cfg.name}"
+    fed = FedConfig(**fed_kw)
+
+    def finite(stage, states, server):
+        bad = [path for path, t in named_leaves({"states": states,
+                                                 "server": server})
+               if t.is_floating_point() and not bool(torch.isfinite(t).all())]
+        if bad:
+            raise AssertionError(f"{name}: state leaves not finite after "
+                                 f"{stage}: {bad}")
+
     shape = ShapeConfig("cli", seq, LM_BATCH, "train")
     tr = FederatedTrainer(cfg, fed, shape, device="cuda")
     specs = client_batch_specs(cfg, shape, tr.m, fed)
@@ -2338,10 +2393,10 @@ def lm_train_phase(torch, kerns, seq=LM_SEQ):
                            draws=TorchLMDraws(0, "cuda"))
     depths = NeumannDraws(0, fed.neumann_k, tr.m, "cuda")
     batches = [make_client_batch(data, cfg, specs, t, "cuda")
-               for t in range(LM_STEPS)]
-    ks = [depths.step(server_step(t, fed.q)) for t in range(LM_STEPS)]
+               for t in range(steps)]
+    ks = [depths.step(server_step(t, fed.q)) for t in range(steps)]
     pspecs = model_specs(cfg)
-    print(f"lm-train-{LM_ARCH}: x {param_count(pspecs['x']):,} and y "
+    print(f"{name}: x {param_count(pspecs['x']):,} and y "
           f"{param_count(pspecs['y']):,} parameters, {cfg.n_layers} layers, "
           f"batch {({k: tuple(v.shape) for k, v in specs.items()})}",
           flush=True)
@@ -2352,9 +2407,11 @@ def lm_train_phase(torch, kerns, seq=LM_SEQ):
     del params
     torch.cuda.synchronize()
     init_s = time.time() - t0
+    finite("init", states, server)
     init_host = to_host(torch, (states, server))
     ev = tr.eval_fn()
-    flops = lm_step_flops(cfg, fed, seq, LM_BATCH)
+    flops = (lm_step_flops(cfg, fed, seq, LM_BATCH)
+             if cfg.family in ("dense", "vlm") else None)
     ll_tokens = LM_BATCH * seq
     q = fed.q
 
@@ -2363,34 +2420,37 @@ def lm_train_phase(torch, kerns, seq=LM_SEQ):
     step_s, loss_e = [], []
     reset_launches(kerns)
     with KernelCalls(torch) as timer:
-        for t in range(LM_STEPS):
+        for t in range(steps):
             if t > 0 and t % q == 0:
                 states, server = sync(states, server)
+                finite(f"the sync before step {t}", states, server)
             torch.cuda.synchronize()
             r0 = time.time()
             states, server = local(states, server, batches[t], ks[t])
             torch.cuda.synchronize()
             step_s.append(time.time() - r0)
+            finite(f"step {t}", states, server)
         loss_e.append(float(ev(states, batches[-1])))
     counts = launch_counts(kerns)
-    syncs_e = (LM_STEPS - 1) // q
-    check_counts("lm-train eager", counts, {
-        "storm_update": 2 * LM_STEPS, "adafbio_update": LM_STEPS + syncs_e,
+    syncs_e = (steps - 1) // q
+    check_counts(f"{name} eager", counts, {
+        "storm_update": 2 * steps, "adafbio_update": steps + syncs_e,
         "quantize_stoch": 0, "dequantize": 0})
     if timer.calls() != {"storm_update": counts["storm_update"],
                          "adafbio_update": counts["adafbio_update"]}:
-        raise AssertionError(f"lm-train eager: calls {timer.calls()} and "
+        raise AssertionError(f"{name} eager: calls {timer.calls()} and "
                              f"launches {counts} differ")
-    kernel_ms = {k: v / LM_STEPS for k, v in timer.ms().items()}
+    kernel_ms = {k: v / steps for k, v in timer.ms().items()}
     launches = dict(counts)
-    # the sync the eager loop runs before step LM_STEPS, so that both
+    # the sync the eager loop runs before step ``steps``, so that both
     # engines end on a sync
     states, server = sync(states, server)
+    finite("the last sync", states, server)
     eager_final = to_host(torch, (states, server))
     del states, server
     free_device_memory(torch)
 
-    # scan: LM_STEPS / q rounds, each q local steps and the sync
+    # scan: steps / q rounds, each q local steps and the sync
     states, server = tree_map(lambda t: t.cuda(), init_host)
     del init_host
     round_fn = tr.round_step_fn()
@@ -2398,8 +2458,9 @@ def lm_train_phase(torch, kerns, seq=LM_SEQ):
     peak_eager = peak_gib(torch)
     torch.cuda.reset_peak_memory_stats()
     reset_launches(kerns)
+    rounds = steps // q
     with KernelCalls(torch) as timer:
-        for r in range(LM_STEPS // q):
+        for r in range(rounds):
             batch_q = tree_stack(batches[r * q:(r + 1) * q])
             k_q = torch.stack(ks[r * q:(r + 1) * q])
             torch.cuda.synchronize()
@@ -2407,22 +2468,22 @@ def lm_train_phase(torch, kerns, seq=LM_SEQ):
             states, server = round_fn(states, server, batch_q, k_q)
             torch.cuda.synchronize()
             round_s.append(time.time() - r0)
+            finite(f"round {r}", states, server)
     loss_s = float(ev(states, batches[-1]))
     counts = launch_counts(kerns)
-    rounds = LM_STEPS // q
-    check_counts("lm-train scan", counts, {
-        "storm_update": 2 * LM_STEPS, "adafbio_update": LM_STEPS + rounds,
+    check_counts(f"{name} scan", counts, {
+        "storm_update": 2 * steps, "adafbio_update": steps + rounds,
         "quantize_stoch": 0, "dequantize": 0})
     if timer.calls() != {"storm_update": counts["storm_update"],
                          "adafbio_update": counts["adafbio_update"]}:
-        raise AssertionError(f"lm-train scan: calls {timer.calls()} and "
+        raise AssertionError(f"{name} scan: calls {timer.calls()} and "
                              f"launches {counts} differ")
     add_counts(launches, counts)
     peak_scan = peak_gib(torch)
     peak = max(peak_eager, peak_scan)
     for v in loss_e + [loss_s]:
         if not math.isfinite(v):
-            raise AssertionError(f"lm-train: loss {loss_e} {loss_s}")
+            raise AssertionError(f"{name}: loss {loss_e} {loss_s}")
     worst, unequal = 0.0, 0
     got = tree_leaves((states, server))
     want = tree_leaves(eager_final)
@@ -2432,30 +2493,188 @@ def lm_train_phase(torch, kerns, seq=LM_SEQ):
             unequal += 1
             worst = max(worst, rel_err(torch, g, w))
     steady_step = statistics.mean(step_s[1:])
-    steady_round = statistics.mean(round_s[1:])
-    print(f"lm-train-{LM_ARCH}: init {init_s:.2f} s; eager {LM_STEPS} steps "
+    # the rounds after the first; a run of one round has only that one
+    steady_round = statistics.mean(round_s[1:] or round_s)
+    rate = (f"{flops / steady_step / 1e12:.1f} TFLOP/s of an estimated "
+            f"{flops / 1e12:.1f} TFLOP a step" if flops else
+            "model FLOP rate not estimated (the dense family's formula)")
+    print(f"{name}: init {init_s:.2f} s; eager {steps} steps "
           f"({syncs_e} sync): steps {[round(x, 4) for x in step_s]} s, "
           f"steady {steady_step * 1e3:.2f} ms a local step, "
-          f"{ll_tokens / steady_step:.1f} LL tokens/s, "
-          f"{flops / steady_step / 1e12:.1f} TFLOP/s of an estimated "
-          f"{flops / 1e12:.1f} TFLOP a step; scan {rounds} rounds: "
-          f"{[round(x, 4) for x in round_s]} s, steady "
+          f"{ll_tokens / steady_step:.1f} LL tokens/s, {rate}; scan "
+          f"{rounds} rounds: {[round(x, 4) for x in round_s]} s, steady "
           f"{steady_round * 1e3:.2f} ms a round "
           f"({q * ll_tokens / steady_round:.1f} LL tokens/s); kernels in "
           f"a step: storm_update {kernel_ms['storm_update']:.3f} ms "
           f"(2 calls), adafbio_update {kernel_ms['adafbio_update']:.3f} ms "
           f"(1 call, and 1 a sync); peak {peak_eager:.2f} GiB eager, "
-          f"{peak_scan:.2f} GiB scan; f(x̄,ȳ) eager "
+          f"{peak_scan:.2f} GiB scan; every state leaf finite after every "
+          f"step, sync and round; f(x̄,ȳ) eager "
           f"{loss_e[-1]:.5f} scan {loss_s:.5f}; eager vs scan: "
           f"{len(got) - unequal} of {len(got)} leaves bit-equal, worst "
           f"normwise rel err {worst:.3e}", flush=True)
     if unequal:
-        raise AssertionError("lm-train: eager and scan final states differ")
+        raise AssertionError(f"{name}: eager and scan final states differ")
     del states, server, eager_final
     free_device_memory(torch)
     return launches, dict(step_ms=steady_step * 1e3,
                           round_ms=steady_round * 1e3, peak_gib=peak,
-                          kernel_ms=kernel_ms)
+                          kernel_ms=kernel_ms, layers=cfg.n_layers)
+
+
+def lm_family_phase(torch, kerns, arch, depths, steps):
+    """lm-train-<arch> for the ssm and hybrid families: ``lm_train_phase``
+    at the arch's full width with LM_FAMILY_FED, at the first depth of
+    ``depths`` whose peak stays within LM_PEAK_GB and that does not run
+    out of memory (the cut rule; no other cut). Prints the depth taken and
+    the cuts tried; returns the launches."""
+    from repro_torch.configs import get_arch
+    tried = []
+    for depth in depths:
+        free_device_memory(torch)
+        cfg = dataclasses.replace(get_arch(arch), n_layers=depth)
+        err = None
+        try:
+            counts, out = lm_train_phase(torch, kerns, cfg, steps,
+                                         fed_kw=LM_FAMILY_FED)
+        except torch.cuda.OutOfMemoryError as e:
+            err = str(e).splitlines()[0]
+        if err is None and out["peak_gib"] * 2 ** 30 / 1e9 <= LM_PEAK_GB:
+            break
+        tried.append(f"{depth} layers: " + (
+            f"out of memory ({err})" if err else
+            f"peak {out['peak_gib'] * 2 ** 30 / 1e9:.2f} GB"))
+    else:
+        raise AssertionError(f"lm-train-{arch}: nothing fits: {tried}")
+    print(f"lm-train-{arch}: depth {depth} of {get_arch(arch).n_layers} "
+          f"layers (cut rule: {'; '.join(tried) or 'the first depth fits'}), "
+          f"{steps} steps, {out['step_ms']:.2f} ms a step, "
+          f"{out['round_ms']:.2f} ms a round, peak {out['peak_gib']:.2f} GiB",
+          flush=True)
+    free_device_memory(torch)
+    return counts
+
+
+def lm_family_parity(torch, kerns):
+    """The ssm and hybrid trainers at reduced size in f32, on the CPU (the
+    kernels' plain versions) and then on the card from the same params,
+    batches and depths (LM_PARITY_FED: K 1, no bf16 feature cache;
+    ShapeConfig("cli", LM_FAMILY_PARITY_SEQ, 2), so each training sequence
+    spans 2 scan chunks): the init, one local step and one sync, every
+    leaf within LM_FAMILY_PARITY_REL normwise of the CPU's after each."""
+    from repro_torch import device as devlib
+    from repro_torch.configs import FedConfig, ShapeConfig, get_arch, reduced
+    from repro_torch.core.tree_util import tree_leaves, tree_map
+    from repro_torch.data.synthetic import (FederatedLMData, TorchLMDraws,
+                                            make_client_batch)
+    from repro_torch.fed.runtime import (FederatedTrainer, NeumannDraws,
+                                         client_batch_specs)
+    from repro_torch.launch.train import PARAM_SALT
+
+    fed = FedConfig(**{**LM_FED, **LM_PARITY_FED})
+    shape = ShapeConfig("cli", LM_FAMILY_PARITY_SEQ, 2, "train")
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        cfg = reduced(get_arch(arch), dtype="float32")
+        cpu = FederatedTrainer(cfg, fed, shape, device="cpu")
+        specs = client_batch_specs(cfg, shape, cpu.m, fed)
+        data = FederatedLMData(vocab=cfg.vocab, n_clients=cpu.m,
+                               draws=TorchLMDraws(0, "cpu"))
+        batch = make_client_batch(data, cfg, specs, 0, "cpu")
+        depths = NeumannDraws(0, fed.neumann_k, cpu.m, "cpu")
+        params = cpu.init_params(devlib.generator("cpu", 1, PARAM_SALT))
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            tr = FederatedTrainer(cfg, fed, shape, device=dev)
+
+            def on(tree, dev=dev):
+                return tree_map(lambda t: t.to(dev), tree)
+            st = tr.init_states(on(params), on(batch), on(depths.init()))
+            stages = [st]
+            st = tr.local_step_fn()(*st, on(batch), on(depths.step(0)))
+            stages.append(st)
+            stages.append(tr.sync_step_fn()(*st))
+            runs[dev] = stages
+        worst = [max(rel_err(torch, a.float(), b.to(a.device).float())
+                     for a, b in zip(tree_leaves(g), tree_leaves(w))
+                     if a.is_floating_point())
+                 for g, w in zip(runs["cuda"], runs["cpu"])]
+        print(f"lm-train parity at reduced {arch} (f32, K 1, seq "
+              f"{LM_FAMILY_PARITY_SEQ}): card vs CPU worst normwise rel err "
+              f"init {worst[0]:.3e}, local step {worst[1]:.3e}, sync "
+              f"{worst[2]:.3e} (limit {LM_FAMILY_PARITY_REL})", flush=True)
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in tree_leaves(runs["cuda"])
+                     if t.is_floating_point())
+        if max(worst) > LM_FAMILY_PARITY_REL or not finite:
+            raise AssertionError(f"lm-train {arch}: card and CPU disagree")
+
+
+def remat_check(torch):
+    """The training forward's per-layer remat against the same layers
+    called directly, on the card: for each family (qwen1.5-4b, falcon-
+    mamba-7b, zamba2-1.2b) one layer at full width (zamba2: one mamba2
+    layer and the shared block after it), bf16 params from a seed, one
+    sequence of LM_SEQ tokens: the features and the gradients of the LM
+    loss in every layer leaf (the layers, zamba2's shared block, the head)
+    through ``torch.func.grad`` equal bit for bit. The embedding's gradient
+    comes from the embedding lookup's backward, outside the layers, and is
+    not compared."""
+    from repro_torch import device as devlib
+    from repro_torch.configs import get_arch
+    from repro_torch.core.bilevel import softmax_xent
+    from repro_torch.core.tree_util import tree_leaves
+    from repro_torch.models import model
+    from repro_torch.models.params import init_params
+
+    for arch in (LM_ARCH, SSM_ARCH, HYBRID_ARCH):
+        cfg = dataclasses.replace(get_arch(arch), n_layers=1)
+        if cfg.family == "hybrid":
+            cfg = dataclasses.replace(cfg, shared_attn_every=1)
+        params = init_params(model.model_specs(cfg), devlib.generator(
+            "cuda", 2, 0), cfg.dtype, "cuda")
+        gen = devlib.generator("cuda", 3, 0)
+        tokens = torch.randint(0, cfg.vocab, (1, LM_SEQ + 1), generator=gen,
+                               device="cuda")
+        ctx = model.ModelCtx(kind="train")
+        calls = []
+
+        def loss(xp, yp):
+            feats = model.features(cfg, xp, {"tokens": tokens[:, :-1]}, ctx)
+            logits = model.head_logits(cfg, yp, feats)
+            return softmax_xent(logits, tokens[:, 1:]), feats
+
+        def run():
+            (gx, gy), feats = torch.func.grad(loss, argnums=(0, 1),
+                                              has_aux=True)(params["x"],
+                                                            params["y"])
+            torch.cuda.synchronize()
+            gx = {k: v for k, v in gx.items() if k != "embed"}
+            return [feats] + tree_leaves((gx, gy))
+
+        real = model.remat_layer
+
+        def counted(body, h, p):
+            calls.append(1)
+            return real(body, h, p)
+        model.remat_layer = counted
+        try:
+            remat = run()
+            model.remat_layer = lambda body, h, p: body(h, p)
+            direct = run()
+        finally:
+            model.remat_layer = real
+        unequal = sum(not torch.equal(a, b) for a, b in zip(remat, direct))
+        finite = all(bool(torch.isfinite(t).all()) for t in remat)
+        print(f"remat vs direct on the card, {arch} ({cfg.family}, one "
+              f"layer at full width, seq {LM_SEQ}): {len(calls)} remat'd "
+              f"layer call, features and {len(remat) - 1} gradient leaves: "
+              f"{len(remat) - unequal} of {len(remat)} bit-equal, finite "
+              f"{finite}", flush=True)
+        if unequal or not finite or len(calls) != 1:
+            raise AssertionError(f"remat vs direct on {arch}: {unequal} "
+                                 f"leaves differ")
+        del params, remat, direct
+        free_device_memory(torch)
 
 
 def train_ckpt_serve_phase(torch, kerns):
@@ -3032,6 +3251,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import flash_attention as fkern
     from repro_torch.kernels import mamba_scan as mk
@@ -3067,6 +3287,15 @@ def main() -> int:
     add_counts(launches, lm_counts)
     for name, ms in lm["kernel_ms"].items():
         numbers[name]["lm_step_ms"] = ms
+    free_device_memory(torch)
+    # the ssm and hybrid families' trainers (ROADMAP 1h)
+    add_counts(launches, lm_family_phase(
+        torch, (kern, qkern), HYBRID_ARCH, (get_arch(HYBRID_ARCH).n_layers,),
+        LM_STEPS))
+    add_counts(launches, lm_family_phase(torch, (kern, qkern), SSM_ARCH,
+                                         FALCON_DEPTHS, FALCON_STEPS))
+    lm_family_parity(torch, (kern, qkern))
+    remat_check(torch)
     add_counts(launches, train_ckpt_serve_phase(torch, (kern, qkern)))
     free_device_memory(torch)
     for name, spec in LM_ROUND_PHASES:

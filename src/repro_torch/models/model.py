@@ -26,6 +26,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.params import ParamSpec
+from repro_torch.models.remat import remat_layer
 
 PORTED_FAMILIES = ("dense", "vlm", "ssm", "hybrid")
 LATER_SLICE = {
@@ -217,25 +218,48 @@ def features(cfg: ArchConfig, xp, batch: Dict[str, torch.Tensor],
     """Backbone features [B,S,d] (everything but the final norm and the LM
     head), through the reference's paths (``attend_full``/``attend_flash``,
     the chunked scan): the training forward keeps them until the kernels
-    have a backward."""
+    have a backward.
+
+    With ``ctx.kind == "train"`` each layer runs under
+    :func:`~repro_torch.models.remat.remat_layer`, as the reference runs
+    each under ``jax.checkpoint``: the attention block and the MLP of a
+    dense or vlm layer, the norm, mixer and residual of an ssm or hybrid
+    layer. A layer then keeps only its input for the backward, which
+    recomputes it (the falcon-mamba-7b scan's residuals are gigabytes a
+    layer). The hybrid's weight-tied shared block runs directly, as in the
+    reference (``_hybrid_seq``). The values and gradients are those of the
+    direct layers, bit for bit."""
     check_family(cfg)
     tokens = batch["tokens"]
     h = embed_tokens(cfg, xp, tokens, batch.get("prefix_embeds"))
     pos = torch.arange(tokens.shape[1], device=tokens.device)
     per_layer = layers(xp["layers"])
+
+    def run(body, h, lp):
+        return (remat_layer(body, h, lp) if ctx.kind == "train"
+                else body(h, lp))
+
     if cfg.family in ("ssm", "hybrid"):
+        def mixer_layer(h, lp):
+            hn = rmsnorm(h, lp["ln"], cfg.norm_eps)
+            return h + ssm_lib.mixer_seq(cfg, lp, hn, ctx.ssm_chunk)[0]
+
         for seg, idx in mixer_segments(cfg):
             for i in idx:
-                lp = per_layer[i]
-                hn = rmsnorm(h, lp["ln"], cfg.norm_eps)
-                h = h + ssm_lib.mixer_seq(cfg, lp, hn, ctx.ssm_chunk)[0]
+                h = run(mixer_layer, h, per_layer[i])
             if seg is not None:
                 h = _attn_block(cfg, xp["shared"], h, ctx, pos=pos)
                 h = mlp_block(cfg, xp["shared"], h)
         return h
+
+    def dense_layer(h, lp):
+        # the positions are made here, not closed over: a layer under
+        # remat_layer may close over no tensor
+        lpos = torch.arange(h.shape[1], device=h.device)
+        return mlp_block(cfg, lp, _attn_block(cfg, lp, h, ctx, pos=lpos))
+
     for lp in per_layer:
-        h = _attn_block(cfg, lp, h, ctx, pos=pos)
-        h = mlp_block(cfg, lp, h)
+        h = run(dense_layer, h, lp)
     return h
 
 

@@ -261,7 +261,14 @@ def _ssd_chunk_dual(xh, Bc, Cc, dtc, A, h0, chunk: int):
         seg = torch.cumsum(da, dim=1)                            # [B,c,H]
         # intra-chunk: scores[i,j] = C_i.B_j * exp(seg_i - seg_j), j <= i
         gap = seg[:, :, None, :] - seg[:, None, :, :]            # [B,c,c,H]
-        decay = torch.where(mask[None, :, :, None], torch.exp(gap), 0.0)
+        # the mask goes in before the exponential: above the diagonal gap is
+        # positive and exp overflows to inf in f32 once a head's decay in
+        # the chunk passes 88.7, and the backward of a select after it
+        # multiplies the zero cotangent there by inf (NaN in the gradient of
+        # dt and every layer below). The reference selects after exp; the
+        # forward is the same either way.
+        decay = torch.exp(gap.masked_fill(~mask[None, :, :, None],
+                                          float("-inf")))
         cb = torch.einsum("bin,bjn->bij", C_c, B_c)              # [B,c,c]
         scores = cb[..., None] * decay                           # [B,c,c,H]
         xdt = x_c * dt_c[..., None]                              # [B,c,H,P]
