@@ -5,9 +5,12 @@
 
 The registry holds the architectures the port runs so far, one module each
 under ``configs/``: the dense family (``qwen2.5-14b`` GQA, ``qwen1.5-4b``
-MHA, ``granite-20b`` MQA), the ssm family (``falcon-mamba-7b``, mamba1)
-and the hybrid family (``zamba2-1.2b``, mamba2 with a shared attention
-block). The other families come with the slices that port their layers
+MHA, ``granite-20b`` MQA, ``deepseek-67b``), the vlm family
+(``internvl2-76b``, the language backbone with stubbed patch embeddings),
+the moe family (``qwen3-moe-30b-a3b``, ``llama4-scout-17b-a16e``), the ssm
+family (``falcon-mamba-7b``, mamba1) and the hybrid family
+(``zamba2-1.2b``, mamba2 with a shared attention block). The encdec family
+(``whisper-tiny``) comes with the slice that ports its encoder
 (ROADMAP.md).
 """
 from __future__ import annotations
@@ -261,7 +264,9 @@ class ArchConfig:
     long_context_window: int = 4096
     # multimodal early-fusion stub: prefix positions replaced by given embeds
     n_prefix_embeds: int = 0
-    # federated placement: "replica" or "zero" (kept for the training slice)
+    # federated placement on a mesh: "replica" or "zero" (the reference's
+    # sharding.py). Without a mesh it means nothing: the port's trainer
+    # runs one client on one device whatever it says (ROADMAP item 1f)
     fed_mode: str = "replica"
     dtype: str = "bfloat16"
 
@@ -288,8 +293,9 @@ INPUT_SHAPES = {
     "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
 }
 
-_ARCH_IDS = ("qwen2.5-14b", "granite-20b", "qwen1.5-4b", "falcon-mamba-7b",
-             "zamba2-1.2b")
+_ARCH_IDS = ("qwen2.5-14b", "granite-20b", "qwen1.5-4b", "deepseek-67b",
+             "internvl2-76b", "qwen3-moe-30b-a3b", "llama4-scout-17b-a16e",
+             "falcon-mamba-7b", "zamba2-1.2b")
 
 
 def _module_name(arch_id: str) -> str:
@@ -303,7 +309,7 @@ def list_arch_ids() -> Tuple[str, ...]:
 def get_arch(arch_id: str) -> ArchConfig:
     if arch_id not in _ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; the port has {_ARCH_IDS} "
-                       f"(the other families come with later slices)")
+                       f"(whisper-tiny comes with a later slice)")
     mod = importlib.import_module(
         f"repro_torch.configs.{_module_name(arch_id)}")
     return mod.CONFIG

@@ -1,0 +1,16 @@
+"""deepseek-67b [dense]: 95L d_model=8192 64H (GQA kv=8) d_ff=22016
+vocab=102400, llama architecture. [arXiv:2401.02954]"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="deepseek-67b",
+    family="dense",
+    source="arXiv:2401.02954",
+    n_layers=95,
+    d_model=8192,
+    n_heads=64,
+    n_kv_heads=8,
+    d_ff=22016,
+    vocab=102400,
+    fed_mode="zero",
+)

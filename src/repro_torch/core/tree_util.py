@@ -76,7 +76,16 @@ def tree_vdot(a, b):
 
 
 def tree_sqnorm(a):
-    return tree_vdot(a, a)
+    """``tree_vdot(a, a)`` from one f32 copy of each leaf: the same value
+    and derivatives, bit for bit, but autodiff keeps one f32 copy where the
+    dot of two copies keeps both (at LM width each is the head's size in
+    f32, several of them live in a Neumann product)."""
+    total = None
+    for x in tree_leaves(a):
+        xf = x.reshape(-1).float()
+        d = torch.dot(xf, xf)
+        total = d if total is None else total + d
+    return total
 
 
 def tree_norm(a):

@@ -77,7 +77,11 @@ NOT_PORTED = (
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="architecture id (qwen1.5-4b, qwen2.5-14b, "
+                         "granite-20b, deepseek-67b, internvl2-76b, "
+                         "qwen3-moe-30b-a3b, llama4-scout-17b-a16e, "
+                         "falcon-mamba-7b, zamba2-1.2b)")
     ap.add_argument("--algorithm", default="adafbio")
     ap.add_argument("--reduced", action="store_true",
                     help="smoke-size variant of the same family")

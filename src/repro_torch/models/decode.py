@@ -1,16 +1,21 @@
 """Serving paths: prefill (build the cache) and the one-token decode
-against it (``src/repro/models/decode.py``), for the dense, ssm and hybrid
-families.
+against it (``src/repro/models/decode.py``), for the dense, vlm, moe, ssm
+and hybrid families.
 
 Cache layouts (the leading dim walks the layers):
-  dense/vlm : {"k", "v": [L,B,W,KV,Dh]}   W = window (ring) or max_len
-              with ``quant=True`` the K/V levels are int8 and
-              {"k_scale", "v_scale": [L,B,W,KV]} f32 hold one scale per
-              (token, head)
-  ssm       : {"h": [L,B,di,N] f32, "conv": [L,B,cw-1,di]}
-  hybrid    : {"h": [L,B,H,P,N] f32, "conv": [L,B,cw-1,di+2N]} and the
-              shared block's {"k", "v": [nseg,B,W,KV,Dh]} (bf16 on the
-              serve path: the family has no int8 pool)
+  dense/vlm/moe : {"k", "v": [L,B,W,KV,Dh]}  W = window (ring) or max_len
+                  with ``quant=True`` the K/V levels are int8 and
+                  {"k_scale", "v_scale": [L,B,W,KV]} f32 hold one scale
+                  per (token, head)
+  ssm           : {"h": [L,B,di,N] f32, "conv": [L,B,cw-1,di]}
+  hybrid        : {"h": [L,B,H,P,N] f32, "conv": [L,B,cw-1,di+2N]} and the
+                  shared block's {"k", "v": [nseg,B,W,KV,Dh]} (bf16 on the
+                  serve path: the family has no int8 pool)
+
+A moe layer routes each batch row as its own group (``models/moe.py``):
+a decode tick routes one token a row (capacity 4, nothing drops), a
+prefill the prompt at its own length, so the capacity follows the prompt
+as in the reference engine, which prefills each prompt unpadded.
 
 ``pos`` is the number of tokens already in the cache; RoPE uses absolute
 positions, so ring buffers (sliding window) stay correct without rotation.
@@ -50,7 +55,7 @@ def cache_spec(cfg: ArchConfig, batch: int, max_len: int,
                ) -> Tuple[Dict[str, TensorSpec], Dict[str, Any]]:
     """(TensorSpec tree, logical-axes tree) of the cache. ``quant=True``:
     int8 K/V with per-(token, head) f32 scales, half the bytes of a bf16
-    cache (the dense families; the ssm and hybrid caches ignore it, as the
+    cache (the attention families; the ssm and hybrid caches ignore it, as the
     reference's do)."""
     check_family(cfg)
     dtype = torch_dtype(dtype)
@@ -61,7 +66,7 @@ def cache_spec(cfg: ArchConfig, batch: int, max_len: int,
     spec: Dict[str, TensorSpec] = {}
     axes: Dict[str, Any] = {}
     fam = cfg.family
-    if fam in ("dense", "vlm"):
+    if fam in ("dense", "vlm", "moe"):
         kvs = (L, batch, w, cfg.n_kv_heads, hd)
         kv_dtype = torch.int8 if quant else dtype
         spec["k"], spec["v"] = TensorSpec(kvs, kv_dtype), TensorSpec(

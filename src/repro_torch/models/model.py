@@ -2,6 +2,8 @@
 the families ported so far:
   dense/vlm : GQA attention + gated MLP (optional qkv bias / window /
               prefix fusion)
+  moe       : GQA attention + top-k MoE (optional shared FFN;
+              ``models/moe.py``)
   ssm       : mamba1 mixer only (``models/ssm.py``)
   hybrid    : mamba2 mixers + ONE weight-tied shared attention block every
               ``shared_attn_every`` layers
@@ -11,8 +13,8 @@ Param tree layout (the bilevel split is structural, as in the reference):
    "y": {"final_norm", "head"}}           # LL variable (head)
 Every leaf of ``x["layers"]`` is stacked over the layers on its first axis,
 and the forward walks the layers with a Python loop over views of them.
-The moe and encdec families raise ``NotImplementedError`` naming the slice
-that brings them.
+The encdec family raises ``NotImplementedError`` naming the slice that
+brings it.
 """
 from __future__ import annotations
 
@@ -24,13 +26,13 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.params import ParamSpec
 from repro_torch.models.remat import remat_layer
 
-PORTED_FAMILIES = ("dense", "vlm", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 LATER_SLICE = {
-    "moe": "the MoE slice (models/moe.py)",
     "encdec": "ROADMAP item 1c (the encoder and cross-attention)",
 }
 
@@ -123,6 +125,11 @@ def model_specs(cfg: ArchConfig) -> Dict[str, Any]:
     elif cfg.family == "hybrid":
         x["layers"] = ssm_lib.mamba2_specs(cfg, L)
         x["shared"] = {**_attn_specs(cfg, 0), **_mlp_specs(cfg, 0, cfg.d_ff)}
+    elif cfg.family == "moe":
+        x["layers"] = {**_attn_specs(cfg, L), **moe_lib.moe_specs(cfg, L),
+                       "ln_mlp": ParamSpec((L, cfg.d_model),
+                                           ("layers", "embed"), init="ones",
+                                           dtype="float32")}
     else:
         x["layers"] = {**_attn_specs(cfg, L), **_mlp_specs(cfg, L, cfg.d_ff)}
     y = {"final_norm": ParamSpec((cfg.d_model,), ("embed",), init="ones",
@@ -196,7 +203,11 @@ def _attn_block(cfg: ArchConfig, p, h, ctx: ModelCtx, *, pos,
 
 
 def mlp_block(cfg: ArchConfig, p, h: torch.Tensor) -> torch.Tensor:
+    """The layer's MLP with its norm and residual: the gated MLP, or the
+    MoE layer for the moe family (the hybrid's shared block is dense)."""
     hn = rmsnorm(h, p["ln_mlp"], cfg.norm_eps)
+    if cfg.family == "moe":
+        return h + moe_lib.apply_moe(cfg, p, hn)
     g = hn @ p["wi"]
     u = hn @ p["wu"]
     return h + (F.silu(g) * u) @ p["wd"]
@@ -223,7 +234,7 @@ def features(cfg: ArchConfig, xp, batch: Dict[str, torch.Tensor],
     With ``ctx.kind == "train"`` each layer runs under
     :func:`~repro_torch.models.remat.remat_layer`, as the reference runs
     each under ``jax.checkpoint``: the attention block and the MLP of a
-    dense or vlm layer, the norm, mixer and residual of an ssm or hybrid
+    dense, vlm or moe layer, the norm, mixer and residual of an ssm or hybrid
     layer. A layer then keeps only its input for the backward, which
     recomputes it (the falcon-mamba-7b scan's residuals are gigabytes a
     layer). The hybrid's weight-tied shared block runs directly, as in the

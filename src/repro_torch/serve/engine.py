@@ -38,8 +38,8 @@ from repro_torch.kernels.quant_decode import quantize_kv
 from repro_torch.models.decode import zeros
 from repro_torch.models.model import check_family
 
-# families with an attention KV cache (the reference's list; moe and encdec
-# are not ported yet)
+# families with an attention KV cache (the reference's list; encdec is not
+# ported yet)
 QUANT_FAMILIES = ("dense", "vlm", "moe", "encdec")
 
 @dataclasses.dataclass

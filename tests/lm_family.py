@@ -1,13 +1,18 @@
-"""Shared pieces of the ssm and hybrid families' LM parity files
-(``test_torch_lm_ssm.py``, ``test_torch_lm_ssm_train.py``,
-``test_torch_lm_hybrid_train.py``, ``test_torch_lm_hybrid_tail.py``): the
-cases and their chunk, the SSD
-witness, both packages' trainers on a case, and the trainer tests. A test
+"""Shared pieces of the LM parity files of the families after the dense
+one (``test_torch_lm_ssm.py``, ``test_torch_lm_ssm_train.py``,
+``test_torch_lm_hybrid_train.py``, ``test_torch_lm_hybrid_tail.py`` for
+the ssm and hybrid families; ``test_torch_lm_moe.py`` and
+``test_torch_lm_vlm.py`` for the moe, vlm and dense ones): the cases and
+their chunk, the SSD witness, both packages' trainers on a case, the LM
+problem's test and the trainer tests. A test
 file imports the trainer tests it runs and picks their cases with the
 fixtures ``case`` (the trainer's cases) and ``family_case`` (one case of
 the family: the population round and the CLI), so that each test is one
 function whose cases are spread over files that each stay within a few
 minutes.
+
+The LM problem's test: f, g and their gradients in f32 at one and two
+microbatches, with the prefix embeddings where the arch takes them.
 
 The trainer tests, in f32 with ``fused="on"`` on both sides:
 
@@ -26,10 +31,12 @@ through numpy, as in ``test_torch_lm_train.py``, whose tolerances apply."""
 import functools
 
 import numpy as np
+import pytest
 import torch
 
 import test_torch_lm_train as L
-from test_torch_harness import neumann_k, reference_draws, to_torch
+from test_torch_harness import (assert_trees_close, neumann_k,
+                                reference_draws, to_torch)
 
 import jax  # noqa: E402  (after the harness: it shims jax first)
 import jax.numpy as jnp  # noqa: E402
@@ -45,6 +52,7 @@ from repro.data.synthetic import make_client_batch as ref_batch  # noqa: E402
 from repro.data.synthetic import make_cohort_batch as ref_cohort  # noqa: E402
 from repro.fed import runtime as ref_rt  # noqa: E402
 from repro.models.model import ModelCtx as RefCtx  # noqa: E402
+from repro.models.model import model_specs as ref_specs  # noqa: E402
 from repro.models.params import init_params as ref_init  # noqa: E402
 from repro.serve import bridge as ref_bridge  # noqa: E402
 from repro_torch.configs import FedConfig, ShapeConfig, get_arch, reduced  # noqa: E402
@@ -58,10 +66,18 @@ from repro_torch.serve import bridge  # noqa: E402
 
 # case -> (arch, overrides of ``reduced``): 2 mamba1 layers; 2 mamba2
 # layers with the shared block after them; a segment of 2 and a tail layer
-# with no shared block after it (the reference's ``_hybrid_seq`` ``rem``)
+# with no shared block after it (the reference's ``_hybrid_seq`` ``rem``);
+# 2 moe layers of 4 experts (top 2; top 1 beside the shared FFN, with 8
+# prefix embeddings); 2 vlm layers with 8 prefix embeddings; 2 dense
+# layers; the attention archs GQA at 2 kv heads
 CASES = {"falcon-mamba-7b": ("falcon-mamba-7b", {}),
          "zamba2-1.2b": ("zamba2-1.2b", {}),
-         "zamba2-1.2b-3L": ("zamba2-1.2b", {"n_layers": 3})}
+         "zamba2-1.2b-3L": ("zamba2-1.2b", {"n_layers": 3}),
+         "qwen3-moe-30b-a3b": ("qwen3-moe-30b-a3b", {"n_kv_heads": 2}),
+         "llama4-scout-17b-a16e": ("llama4-scout-17b-a16e",
+                                   {"n_kv_heads": 2}),
+         "internvl2-76b": ("internvl2-76b", {"n_kv_heads": 2}),
+         "deepseek-67b": ("deepseek-67b", {"n_kv_heads": 2})}
 # the scans' chunk: the training sequences (L.SEQ = 32) span 2 chunks, the
 # zeta_0 and Neumann sequences (64) 4, so the state carried between chunks
 # is differentiated
@@ -122,6 +138,64 @@ def ssd_mask_first(xh, Bc, Cc, dtc, A, h0, chunk):
     h_last, ys = jax.lax.scan(body, h0, (split(xh), split(Bc), split(Cc),
                                          split(dtc)))
     return ys.swapaxes(0, 1).reshape(b, S, H, P), h_last
+
+
+# ------------------------------------------------------------ the problem
+
+@functools.lru_cache(maxsize=None)
+def problem_inputs(case):
+    """f32 params (away from the zero-init biases) and the ``f``/``g``
+    batches of 2 sequences of L.SEQ, as numpy, with n_prefix_embeds
+    prefix embeddings a sequence where the arch takes them."""
+    ref_cfg, cfg = _cfgs(case)
+    params = ref_init(ref_specs(ref_cfg), jax.random.PRNGKey(1), "float32")
+    params = jax.tree.map(lambda a: a + (0.05 * jax.random.normal(
+        jax.random.PRNGKey(2), a.shape)).astype(a.dtype), params)
+    rng = np.random.default_rng(0)
+
+    def batch():
+        b = {"tokens": rng.integers(0, cfg.vocab, (2, L.SEQ)).astype(
+            np.int32)}
+        if cfg.n_prefix_embeds:
+            b["prefix_embeds"] = rng.standard_normal(
+                (2, cfg.n_prefix_embeds, cfg.d_model)).astype(np.float32)
+        return b
+    return params, {"f": batch(), "g": batch()}
+
+
+@functools.lru_cache(maxsize=None)
+def _problem_results(case, microbatch):
+    """The reference's (jitted) and the port's f, g, grad_f_xy and
+    grad_g_y on ``problem_inputs``."""
+    ref_cfg, cfg = _cfgs(case)
+    rctx, pctx = _ctxs()
+    rp = ref_bilevel.lm_bilevel_problem(ref_cfg, rctx, 1e-3,
+                                        microbatch=microbatch)
+    pp = bilevel.lm_bilevel_problem(cfg, pctx, 1e-3, microbatch=microbatch)
+    params, b = problem_inputs(case)
+
+    def results(problem, xp, yp, b):
+        return (problem.f(xp, yp, b["f"]), problem.g(xp, yp, b["g"]),
+                problem.grad_f_xy(xp, yp, b["f"]),
+                problem.grad_g_y(xp, yp, b["g"]))
+    want = jax.jit(lambda x, y, b: results(rp, x, y, b))(
+        params["x"], params["y"], jax.tree.map(jnp.asarray, b))
+    got = results(pp, to_torch(params["x"]), to_torch(params["y"]),
+                  to_torch(b))
+    return want, got
+
+
+@pytest.mark.parametrize("nc", [1, 2])
+def test_lm_problem_matches_reference(case, nc):
+    """f, g, grad_f_xy and grad_g_y in f32, at one and two microbatches
+    (the prefix embeddings split with the tokens): 1e-5, the dense
+    family's limit (test_torch_lm_train.TOL)."""
+    want, got = _problem_results(case, 1 if nc == 2 else None)
+    for name, g, w in zip(("f", "g"), got[:2], want[:2]):
+        np.testing.assert_allclose(float(g), float(w), rtol=1e-5,
+                                   err_msg=name)
+    for name, g, w in zip(("grad_f_xy", "grad_g_y"), got[2:], want[2:]):
+        assert_trees_close(g, w, **L.TOL["float32"], what=f"{name} nc={nc}")
 
 
 # ------------------------------------------------------------ the trainers

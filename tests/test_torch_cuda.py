@@ -308,6 +308,8 @@ def _attn_close(got, want, dtype):
     (1, 8, 2, 256, 128, True, None, torch.bfloat16, True),    # GQA
     (1, 4, 4, 200, 64, True, None, torch.float32, True),      # MHA, ragged
     (1, 32, 32, 300, 64, True, None, torch.bfloat16, True),   # hybrid's block
+    (1, 32, 4, 300, 64, True, None, torch.bfloat16, True),    # qwen3-moe
+    (1, 64, 8, 260, 128, True, None, torch.bfloat16, True),   # 64 over 8
     (2, 8, 1, 130, 128, True, None, torch.bfloat16, False),   # MQA
     (1, 4, 2, 512, 64, True, 128, torch.float32, True),       # window
     (1, 4, 2, 100, 64, False, None, torch.float32, False),    # not causal
@@ -346,6 +348,8 @@ def test_flash_attention_matches_plain_version(cuda, b, h, kv, s, d, causal,
 @pytest.mark.parametrize("b,h,kv,w,d,pos,dtype,offset", [
     (3, 8, 2, 200, 128, (1, 200, 77), torch.bfloat16, 0),   # [B] pos, ragged W
     (2, 12, 1, 64, 128, (64, 5), torch.bfloat16, 0),        # MQA
+    (3, 32, 4, 200, 64, (1, 200, 77), torch.bfloat16, 0),   # qwen3-moe
+    (2, 64, 8, 130, 128, (130, 9), torch.bfloat16, 0),      # 64 over 8
     (2, 4, 4, 150, 64, 150, torch.float32, 0),              # scalar pos
     (2, 8, 2, 100, 64, (3, 99), torch.float32, 1),          # misaligned
     (1, 4, 2, 70, 64, 0, torch.float32, 0),                 # nothing valid

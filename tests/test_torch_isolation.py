@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``repro_torch``, and neither
-``chip_smoke.py`` nor ``scripts/kernel_times.py``, imports ``jax`` or the
+``chip_smoke.py``, ``scripts/kernel_times.py`` nor
+``scripts/lm_step_memory.py``, imports ``jax`` or the
 JAX package ``repro``; and its entry points run on the card unless the
 caller asks for the CPU."""
 import ast
@@ -14,7 +15,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                     ROOT / "scripts" / "kernel_times.py"]
+                                     ROOT / "scripts" / "kernel_times.py",
+                                     ROOT / "scripts" / "lm_step_memory.py"]
 
 
 def _forbidden(name: str) -> bool:
