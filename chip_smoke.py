@@ -194,7 +194,27 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
    Each phase prints its seconds. The flash and int8-decode phases (13
    and 14) hold the slice's head layouts too (32 over 4 at head_dim 64,
    64 over 8 at 128);
-22. one JSON line with every kernel's numbers (launches summed over every
+22. the encdec slice (encdec_phases): serve-whisper-tiny at full width
+   and depth (4 encoder and 4 decoder layers, d_model 384, 6 heads over
+   6 at head_dim 64, 61 M params) through ``Engine(slots=8,
+   max_len=2048, kv_quant=True)``, 16 requests of 4, 64 and 224 prompt
+   tokens, each with 2048 frames of encoder embeddings: 12 flash launches
+   an admission (the encoder's 4, and each decoder layer's self- and
+   cross-attention, neither of the encoder's nor the cross-attention's
+   causal, the cross-attention's Sq the prompt and Sk the frames) and 4
+   int8-decode launches a tick, then its serve check (item 17);
+   lm-train-whisper-tiny at full width and depth as item 11 (the
+   launcher's FedConfig; 8 x 1024 frames, 256 decoder tokens), card vs
+   CPU at reduced size, one encoder and one decoder layer under remat
+   against the direct layers; lm-baselines-whisper-tiny: AdaFBiO and the
+   five baselines through FederatedTrainer, one scan round each at the
+   same shape, exact launches (AdaFBiO's, the adaptive-"none" three's
+   storm_update only, none for fednest and localbsgvrm), every leaf
+   finite, then each card vs CPU at reduced size. The flash phase holds
+   whisper's encoder (2048 frames), its cross-attention (224 over 2048)
+   and a cross case at 1500 frames, none causal; the int8-decode phase
+   its 6 over 6 at head_dim 64. Each phase prints its seconds;
+23. one JSON line with every kernel's numbers (launches summed over every
    path above), then the result line ``{"ok": true, "device": {...}}``.
 
 Every phase either passes or raises, and the script exits nonzero.
@@ -230,20 +250,29 @@ SERVE_WITNESS = 2.0            # bf16 serve checks, see serve_check
 SCAN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 SFU_PER_CLOCK = 16             # exponentials per clock per SM (Hopper SFUs)
 QUEUE_FILL_CYCLES = 2_000_000  # the spin before a timed call, ~1 ms
-# flash_phase's cases: label, B, H, KV, S, head_dim, dtype, window
-FLASH_CASES = [("main", 1, 40, 8, 1536, 128, "bfloat16", None),
-               ("mha-ragged", 1, 20, 20, 1000, 128, "bfloat16", None),
-               ("mqa", 1, 48, 1, 1536, 128, "bfloat16", None),
-               ("window", 1, 40, 8, 4096, 128, "bfloat16", 1024),
-               # zamba2-1.2b's shared block at the longest prompt
-               ("hybrid", 1, 32, 32, 1536, 64, "bfloat16", None),
-               # the MoE and vlm slice's prefills at the longest prompt:
-               # qwen3-moe-30b-a3b (a group of 8 at head_dim 64) and
-               # deepseek-67b and internvl2-76b (64 heads over 8);
-               # llama4-scout-17b-a16e's 40 over 8 is "main"
-               ("qwen3-moe", 1, 32, 4, 1536, 64, "bfloat16", None),
-               ("64-over-8", 1, 64, 8, 1536, 128, "bfloat16", None),
-               ("f32", 1, 8, 2, 512, 64, "float32", None)]
+# flash_phase's cases: label, B, H, KV, Sq, Sk, head_dim, dtype, window,
+# causal
+FLASH_CASES = [
+    ("main", 1, 40, 8, 1536, 1536, 128, "bfloat16", None, True),
+    ("mha-ragged", 1, 20, 20, 1000, 1000, 128, "bfloat16", None, True),
+    ("mqa", 1, 48, 1, 1536, 1536, 128, "bfloat16", None, True),
+    ("window", 1, 40, 8, 4096, 4096, 128, "bfloat16", 1024, True),
+    # zamba2-1.2b's shared block at the longest prompt
+    ("hybrid", 1, 32, 32, 1536, 1536, 64, "bfloat16", None, True),
+    # the MoE and vlm slice's prefills at the longest prompt:
+    # qwen3-moe-30b-a3b (a group of 8 at head_dim 64) and deepseek-67b and
+    # internvl2-76b (64 heads over 8); llama4-scout-17b-a16e's 40 over 8
+    # is "main"
+    ("qwen3-moe", 1, 32, 4, 1536, 1536, 64, "bfloat16", None, True),
+    ("64-over-8", 1, 64, 8, 1536, 1536, 128, "bfloat16", None, True),
+    # whisper-tiny's prefill (6 heads over 6 at head_dim 64), neither
+    # causal: its encoder over the serve phase's 2048 frames, its
+    # cross-attention from the longest prompt (224 tokens) over them, and
+    # a cross case at whisper's own 1500 frames (a ragged key tile)
+    ("whisper-enc", 1, 6, 6, 2048, 2048, 64, "bfloat16", None, False),
+    ("whisper-cross", 1, 6, 6, 224, 2048, 64, "bfloat16", None, False),
+    ("cross-ragged", 1, 6, 6, 77, 1500, 64, "bfloat16", None, False),
+    ("f32", 1, 8, 2, 512, 512, 64, "float32", None, True)]
 # mamba_scan_phase's cases: label, B, S, Di, N, dtype
 SCAN_CASES = [("main", 1, 1536, 8192, 16, "float32"),
               ("B=2", 2, 1024, 8192, 16, "float32"),
@@ -281,7 +310,11 @@ QD_LAYOUTS = [
     ("qwen3-moe", 8, 32, 4, 2048, (1, 2048, 1000, 1536, 37, 2047, 512, 1300),
      64),
     ("64-over-8", 8, 64, 8, 2048, (1, 2048, 1000, 1536, 37, 2047, 512, 1300),
-     128)]
+     128),
+    # whisper-tiny's decoder self-attention: 6 heads over 6 (a group of 1)
+    # at head_dim 64
+    ("whisper", 8, 6, 6, 2048, (1, 2048, 1000, 1536, 37, 2047, 512, 1300),
+     64)]
 COLD_BYTES = 100_000_000       # the cold pools' bytes in all: twice L2
 # The decode kernel before its redesign (PR 13's kernel, commit 061b1b3),
 # timed warm and cold by scripts/kernel_times.py in one machine call beside
@@ -490,6 +523,27 @@ LM_ROUND_PHASES = [
 LM_PARITY_FED = dict(q=2, neumann_k=1, rho=1e-2)
 LM_PARITY_REL = {"population": 1e-4, "async": 1e-3, "gossip": 1e-4}
 LM_PARITY_EF_REL = 5e-2
+# The encdec slice (encdec_phases, ROADMAP 1c with 1i): whisper-tiny at
+# full width and depth (4 encoder and 4 decoder layers, d_model 384, 6
+# heads over 6 at head_dim 64, d_ff 1536, vocab 51865: 61 M params; no
+# cut). Served through Engine(slots=8, max_len=2048, kv_quant=True), so
+# each request carries 2048 frames of encoder embeddings (whisper's own
+# window is 1500 frames; the reference path's attend_flash needs the
+# frames a multiple of attn_chunk, 1024); the load's prompts and budgets
+# from whisper's 448-token decoder context: prompts of 4, 64 and 224
+# tokens, budgets ~ 1 + Geom(1/64) capped at 224
+ENCDEC_ARCH = "whisper-tiny"
+ENCDEC_LOAD = dict(n_requests=16, rate=0.0, prompt_lens=(4, 64, 224),
+                   mean_new_tokens=64.0, max_new_cap=224, seed=0)
+# lm-baselines-whisper-tiny: AdaFBiO and the five baselines of Table 1
+# through FederatedTrainer, one scan round each at lm_train_phase's shape
+BASELINES = ("adafbio", "adafbio_na", "fedbioacc", "fedavg_sgd", "fednest",
+             "localbsgvrm")
+# whisper-tiny's trainers at reduced size, card against CPU
+# (lm_family_parity): the CPU tests' per-stage limit for the family against
+# the reference (tests/lm_family.py: ENCDEC_STAGE_REL; its first local step
+# rounds to ~1e-4 in the cross-attention's leaves of w on every path)
+ENCDEC_PARITY_REL = 3e-4
 
 
 def gpu_line():
@@ -1411,7 +1465,8 @@ def quadratic(torch):
 
 
 def attention_pairs(sq, sk, causal, window):
-    """The (query, key) pairs the mask lets through, positions from 0."""
+    """The (query, key) pairs the mask lets through, positions from 0 (all
+    Sq x Sk of them where nothing is masked)."""
     total = 0
     for qp in range(sq):
         hi = min(qp + 1, sk) if causal else sk
@@ -1430,13 +1485,13 @@ def attn_error(torch, got, want, dtype):
     return diff.max().item(), worst
 
 
-def flash_inputs(torch, gen, b, h, kv, s, d, dtype):
-    """q [B, H, S, D], k and v [B, KV, S, D]: views of the prefill's
+def flash_inputs(torch, gen, b, h, kv, sq, sk, d, dtype):
+    """q [B, H, Sq, D], k and v [B, KV, Sk, D]: views of the prefill's
     [B, S, heads, D] layout, drawn from ``gen`` on the card."""
-    def make(heads):
+    def make(heads, s):
         return torch.randn(b, s, heads, d, generator=gen, device="cuda",
                            dtype=dtype).transpose(1, 2)
-    return make(h), make(kv), make(kv)
+    return make(h, sq), make(kv, sk), make(kv, sk)
 
 
 def scan_inputs(torch, gen, b, s, di, n, dtype):
@@ -1466,25 +1521,25 @@ def flash_phase(torch, fkern, ref):
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     results = {}
-    for label, b, h, kv, s, d, dtype, window in FLASH_CASES:
+    for label, b, h, kv, sq, sk, d, dtype, window, causal in FLASH_CASES:
         dtype = getattr(torch, dtype)
-        q, k, v = flash_inputs(torch, gen, b, h, kv, s, d, dtype)
-        fast = lambda: fkern.flash_attention(q, k, v, causal=True,  # noqa
+        q, k, v = flash_inputs(torch, gen, b, h, kv, sq, sk, d, dtype)
+        fast = lambda: fkern.flash_attention(q, k, v, causal=causal,  # noqa
                                              window=window)
-        plain = lambda: ref.flash_attention_ref(q, k, v, causal=True,  # noqa
-                                                window=window)
+        plain = lambda: ref.flash_attention_ref(  # noqa: E731
+            q, k, v, causal=causal, window=window)
         if window is None:
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q, k, v, is_causal=True, enable_gqa=True)
+                q, k, v, is_causal=causal, enable_gqa=True)
         else:
-            pos = torch.arange(s, device=dev)
+            pos = torch.arange(sq, device=dev)
             mask = ((pos[None, :] <= pos[:, None])
                     & (pos[None, :] > pos[:, None] - window))
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q, k, v, attn_mask=mask, enable_gqa=True)
         err, worst = attn_error(torch, fast(), plain(), dtype)
-        flops = 4 * b * h * d * attention_pairs(s, s, True, window)
-        nbytes = (2 * b * s * h * d + 2 * b * s * kv * d) * q.element_size()
+        flops = 4 * b * h * d * attention_pairs(sq, sk, causal, window)
+        nbytes = (2 * b * sq * h * d + 2 * b * sk * kv * d) * q.element_size()
         peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
         bound = max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3
         row = {"max_abs_err": err, "worst": worst, "ms": time_ms(torch, fast),
@@ -1495,8 +1550,9 @@ def flash_phase(torch, fkern, ref):
                "flops": flops, "bytes": nbytes}
         if label == "main":
             results["flash_attention"] = row
-        print(f"kernel flash_attention {label:10s} B {b} H {h} KV {kv} S {s} "
-              f"D {d} {str(dtype)[6:]} window {window} ("
+        print(f"kernel flash_attention {label:10s} B {b} H {h} KV {kv} Sq "
+              f"{sq} Sk {sk} D {d} {str(dtype)[6:]} window {window} "
+              f"{'causal' if causal else 'not causal'} ("
               f"{fkern.source_for(dtype)}): max_abs_err {err:.3e}, worst "
               f"element at {worst:.3f} of its limit; kernel {row['ms']:.4f} "
               f"ms ("
@@ -1660,8 +1716,8 @@ def serve_path(torch, kerns, arch, load, kv_quant, expect, layers=None):
     """``arch`` at full width (bf16 params from a seeded generator; its
     depth cut to ``layers`` where given) through ``Engine(slots=8,
     max_len=2048, kv_quant=kv_quant)``, replaying ``load`` (each request
-    with its prefix embeddings from the load generator where the arch
-    takes them). ``expect(cfg, admissions, ticks)`` gives the launch count
+    with its prefix embeddings, or its 2048 frames of encoder embeddings,
+    from the load generator where the arch takes them). ``expect(cfg, admissions, ticks)`` gives the launch count
     of each kernel the path runs; every other kernel must stay at 0.
     Returns (launch counts, cfg, params, requests)."""
     from repro_torch import device as devlib
@@ -1686,7 +1742,10 @@ def serve_path(torch, kerns, arch, load, kv_quant, expect, layers=None):
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
     pre = ((cfg.n_prefix_embeds, cfg.d_model) if cfg.n_prefix_embeds
            else None)
-    reqs = generate_requests(LoadSpec(**load), cfg.vocab, prefix_shape=pre)
+    enc = ((SERVE_MAX_LEN, cfg.d_model) if cfg.family == "encdec"
+           else None)
+    reqs = generate_requests(LoadSpec(**load), cfg.vocab, enc_shape=enc,
+                             prefix_shape=pre)
     eng = Engine(cfg, params, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
                  kv_quant=kv_quant)
     # every prefill's and tick's logits finite: one flag a call, on the
@@ -1747,7 +1806,8 @@ def serve_logits(torch, cfg, params, pair, paths):
     """Each path's logits for the two requests of ``pair``: the prefill
     (one row each), then 8 decode ticks of both rows, every path fed the
     first path's greedy tokens. The first path's prefill rows fill the int8
-    pool, and every path starts each tick from the first path's pool, so
+    pool (and an encdec model's dense cross cache), and every path starts
+    each tick from the first path's pool, so
     the paths differ only in their attention (each still quantizes its
     new token's K/V from its own activations). ``paths``: name ->
     ``ModelCtx.attn``; the path named "control" also has each row's first
@@ -1773,6 +1833,9 @@ def serve_logits(torch, cfg, params, pair, paths):
         if cfg.n_prefix_embeds:
             batch["prefix_embeds"] = torch.from_numpy(
                 r.prefix_embeds[None]).to(dev, getattr(torch, cfg.dtype))
+        if cfg.family == "encdec":
+            batch["enc_embeds"] = torch.from_numpy(
+                r.enc_embeds[None]).to(dev, getattr(torch, cfg.dtype))
         for name, attn in paths.items():
             logits, row = prefill(cfg, params, batch,
                                   zeros(row_abs, dev),
@@ -1783,6 +1846,9 @@ def serve_logits(torch, cfg, params, pair, paths):
                     levels, scale = quantize_kv(row[key][:, 0])
                     pools[name][key][:, i] = levels
                     pools[name][key + "_scale"][:, i] = scale
+                for key in ("ck", "cv"):
+                    if key in row:        # the encdec cross cache, dense
+                        pools[name][key][:, i] = row[key][:, 0]
     token = torch.cat([lg[:, 0].argmax(-1) for lg in out[lead]]).to(
         torch.int32)[:, None]
     pos = torch.tensor([len(r.tokens) for r in pair], dtype=torch.int32,
@@ -1886,14 +1952,13 @@ def serve_check(torch, cfg, params, reqs):
 def widen_to_f32(torch, cfg, params):
     """Widen ``params`` to f32 in place, leaf by leaf (exact), and return
     the f32 config."""
-    for part in ("x", "y"):
-        tree = params[part]
+    def widen(tree):
         for key in sorted(tree):
             if isinstance(tree[key], dict):
-                for k2 in sorted(tree[key]):
-                    tree[key][k2] = tree[key][k2].float()
+                widen(tree[key])
             else:
                 tree[key] = tree[key].float()
+    widen(params)
     free_device_memory(torch)
     return dataclasses.replace(cfg, dtype="float32")
 
@@ -2265,6 +2330,129 @@ def moe_vlm_phases(torch, kerns):
     remat_check(torch, [MOE_VLM_TRAIN[0][0]])
     print(f"moe and vlm trainers card vs CPU and remat: "
           f"{time.time() - t0:.1f} s", flush=True)
+    return launches
+
+
+def encdec_serve_expect(cfg, admissions, ticks):
+    """The encdec int8 serve path's launches: flash once an encoder layer
+    and twice a decoder layer (self- and cross-attention) an admission,
+    the int8 decode once a decoder layer a tick (the tick's
+    cross-attention reads the dense cross cache through the plain
+    ``attend_decode``, as the reference's)."""
+    return {"flash_attention": (cfg.encoder.n_layers + 2 * cfg.n_layers)
+            * admissions,
+            "quant_decode_attention": cfg.n_layers * ticks}
+
+
+def lm_baselines_phase(torch, kerns, arch=ENCDEC_ARCH):
+    """lm-baselines-<arch>: AdaFBiO and the Table-1 baselines (BASELINES)
+    through FederatedTrainer at lm_train_phase's shape (full width and
+    depth, launch/train.py's FedConfig, LM_BATCH x LM_SEQ, one client),
+    each from the same params, batches and Neumann depths: the init and
+    one scan round (q local steps and the sync); every state leaf finite
+    after it, and the update kernels' launches as the code gives them:
+    AdaFBiO 2 storm_update a step and one adafbio_update a step and a
+    sync; adafbio_na, fedbioacc and fedavg_sgd (AdaFBiO's step at
+    adaptive "none": the STORM refreshes launch, the plain x update does
+    not) 2 storm_update a step; fednest and localbsgvrm (their own steps)
+    none. Prints each round's ms and peak; then one local step and a sync
+    of each, card against the CPU at reduced size (lm_family_parity).
+    Returns the launches."""
+    from repro_torch import device as devlib
+    from repro_torch.configs import FedConfig, ShapeConfig, get_arch
+    from repro_torch.core.tree_util import tree_leaves, tree_map, tree_stack
+    from repro_torch.data.synthetic import (FederatedLMData, TorchLMDraws,
+                                            make_client_batch)
+    from repro_torch.fed.runtime import (FederatedTrainer, NeumannDraws,
+                                         client_batch_specs)
+    from repro_torch.launch.train import PARAM_SALT
+
+    cfg = get_arch(arch)
+    fed = FedConfig(**LM_FED)
+    q = fed.q
+    shape = ShapeConfig("cli", LM_SEQ, LM_BATCH, "train")
+    base = FederatedTrainer(cfg, fed, shape, device="cuda")
+    specs = client_batch_specs(cfg, shape, base.m, fed)
+    data = FederatedLMData(vocab=cfg.vocab, n_clients=base.m,
+                           draws=TorchLMDraws(0, "cuda"))
+    depths = NeumannDraws(0, fed.neumann_k, base.m, "cuda")
+    batches = [make_client_batch(data, cfg, specs, t, "cuda")
+               for t in range(q)]
+    batch_q = tree_stack(batches)
+    k_q = torch.stack([depths.step(t) for t in range(q)])
+    params = base.init_params(devlib.generator("cuda", 0, PARAM_SALT))
+    del base
+    launches = {}
+    for alg in BASELINES:
+        tr = FederatedTrainer(cfg, fed, shape, algorithm=alg, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        # a copy each: at one client the states view the params they start
+        # from, and a round may write its states in place
+        states, server = tr.init_states(tree_map(torch.clone, params),
+                                        batches[0], depths.init())
+        reset_launches(kerns)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states, server = tr.round_step_fn()(states, server, batch_q, k_q)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        counts = launch_counts(kerns)
+        storm = 2 * q if alg not in ("fednest", "localbsgvrm") else 0
+        check_counts(f"lm-baselines {alg}", counts, {
+            "storm_update": storm,
+            "adafbio_update": q + 1 if alg == "adafbio" else 0,
+            "quantize_stoch": 0, "dequantize": 0})
+        add_counts(launches, counts)
+        bad = [path for path, t in named_leaves({"states": states,
+                                                 "server": server})
+               if t.is_floating_point() and not bool(torch.isfinite(t).all())]
+        if bad:
+            raise AssertionError(f"lm-baselines {alg}: leaves not finite "
+                                 f"after the round: {bad}")
+        loss = float(tr.eval_fn()(states, batches[-1]))
+        print(f"lm-baselines-{arch} {alg:11s}: one round (q {q} steps and "
+              f"the sync) {ms:.1f} ms, launches {counts}, server "
+              f"keys {sorted(server['adaptive'])}, every leaf finite, "
+              f"f(x̄,ȳ) {loss:.5f}, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"({len(tree_leaves(states))} state leaves)", flush=True)
+        del states, server, tr
+        free_device_memory(torch)
+    del params, batches, batch_q
+    free_device_memory(torch)
+    lm_family_parity(torch, kerns, [arch], BASELINES)
+    return launches
+
+
+def encdec_phases(torch, kerns):
+    """The encdec slice's phases (ROADMAP 1c with 1i), whisper-tiny at full
+    width and depth: serve-whisper-tiny (serve_path over ENCDEC_LOAD with
+    the int8 pool, exact launches by encdec_serve_expect, then serve_check
+    on the same weights), lm-train-whisper-tiny (lm_train_phase at
+    launch/train.py's FedConfig; the trainer card vs CPU at reduced size;
+    one encoder and one decoder layer under remat against the direct
+    layers) and lm-baselines-whisper-tiny (lm_baselines_phase). Prints each
+    phase's seconds; returns the serve and train paths' launches."""
+    from repro_torch.configs import get_arch
+    launches = {}
+    t0 = time.time()
+    counts, cfg, params, reqs = serve_path(
+        torch, kerns, ENCDEC_ARCH, ENCDEC_LOAD, True, encdec_serve_expect)
+    add_counts(launches, counts)
+    serve_check(torch, cfg, params, reqs)
+    del params
+    free_device_memory(torch)
+    print(f"serve-{ENCDEC_ARCH}: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    counts, _ = lm_train_phase(torch, kerns[:2], get_arch(ENCDEC_ARCH))
+    add_counts(launches, counts)
+    lm_family_parity(torch, kerns[:2], [ENCDEC_ARCH])
+    remat_check(torch, [ENCDEC_ARCH])
+    print(f"lm-train-{ENCDEC_ARCH}: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    add_counts(launches, lm_baselines_phase(torch, kerns[:2]))
+    print(f"lm-baselines-{ENCDEC_ARCH}: {time.time() - t0:.1f} s",
+          flush=True)
     return launches
 
 
@@ -2737,14 +2925,17 @@ def lm_family_phase(torch, kerns, arch, depths, steps):
     return counts
 
 
-def lm_family_parity(torch, kerns, archs=(SSM_ARCH, HYBRID_ARCH)):
-    """The trainers of ``archs`` (the ssm and hybrid ones by default) at
+def lm_family_parity(torch, kerns, archs=(SSM_ARCH, HYBRID_ARCH),
+                     algorithms=("adafbio",)):
+    """The trainers of ``archs`` (the ssm and hybrid ones by default), each
+    running each algorithm of ``algorithms`` (AdaFBiO by default), at
     reduced size in f32, on the CPU (the kernels' plain versions) and then
     on the card from the same params, batches and depths (LM_PARITY_FED:
     K 1, no bf16 feature cache; ShapeConfig("cli", LM_FAMILY_PARITY_SEQ,
     2), so each training sequence spans 2 scan chunks of the ssm and
     hybrid layers): the init, one local step and one sync, every leaf
-    within LM_FAMILY_PARITY_REL normwise of the CPU's after each."""
+    within LM_FAMILY_PARITY_REL normwise of the CPU's after each
+    (whisper-tiny's within ENCDEC_PARITY_REL)."""
     from repro_torch import device as devlib
     from repro_torch.configs import FedConfig, ShapeConfig, get_arch, reduced
     from repro_torch.core.tree_util import tree_leaves, tree_map
@@ -2765,40 +2956,48 @@ def lm_family_parity(torch, kerns, archs=(SSM_ARCH, HYBRID_ARCH)):
         batch = make_client_batch(data, cfg, specs, 0, "cpu")
         depths = NeumannDraws(0, fed.neumann_k, cpu.m, "cpu")
         params = cpu.init_params(devlib.generator("cpu", 1, PARAM_SALT))
-        runs = {}
-        for dev in ("cpu", "cuda"):
-            tr = FederatedTrainer(cfg, fed, shape, device=dev)
+        limit = (ENCDEC_PARITY_REL if cfg.family == "encdec"
+                 else LM_FAMILY_PARITY_REL)
+        for alg in algorithms:
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                tr = FederatedTrainer(cfg, fed, shape, algorithm=alg,
+                                      device=dev)
 
-            def on(tree, dev=dev):
-                return tree_map(lambda t: t.to(dev), tree)
-            st = tr.init_states(on(params), on(batch), on(depths.init()))
-            stages = [st]
-            st = tr.local_step_fn()(*st, on(batch), on(depths.step(0)))
-            stages.append(st)
-            stages.append(tr.sync_step_fn()(*st))
-            runs[dev] = stages
-        worst = [max(rel_err(torch, a.float(), b.to(a.device).float())
-                     for a, b in zip(tree_leaves(g), tree_leaves(w))
-                     if a.is_floating_point())
-                 for g, w in zip(runs["cuda"], runs["cpu"])]
-        print(f"lm-train parity at reduced {arch} (f32, K 1, seq "
-              f"{LM_FAMILY_PARITY_SEQ}): card vs CPU worst normwise rel err "
-              f"init {worst[0]:.3e}, local step {worst[1]:.3e}, sync "
-              f"{worst[2]:.3e} (limit {LM_FAMILY_PARITY_REL})", flush=True)
-        finite = all(bool(torch.isfinite(t).all())
-                     for t in tree_leaves(runs["cuda"])
-                     if t.is_floating_point())
-        if max(worst) > LM_FAMILY_PARITY_REL or not finite:
-            raise AssertionError(f"lm-train {arch}: card and CPU disagree")
+                def on(tree, dev=dev):
+                    return tree_map(lambda t: t.to(dev), tree)
+                st = tr.init_states(on(params), on(batch), on(depths.init()))
+                stages = [st]
+                st = tr.local_step_fn()(*st, on(batch), on(depths.step(0)))
+                stages.append(st)
+                stages.append(tr.sync_step_fn()(*st))
+                runs[dev] = stages
+            worst = [max(rel_err(torch, a.float(), b.to(a.device).float())
+                         for a, b in zip(tree_leaves(g), tree_leaves(w))
+                         if a.is_floating_point())
+                     for g, w in zip(runs["cuda"], runs["cpu"])]
+            print(f"lm-train parity at reduced {arch}, {alg} (f32, K 1, seq "
+                  f"{LM_FAMILY_PARITY_SEQ}): card vs CPU worst normwise rel "
+                  f"err init {worst[0]:.3e}, local step {worst[1]:.3e}, sync "
+                  f"{worst[2]:.3e} (limit {limit})", flush=True)
+            finite = all(bool(torch.isfinite(t).all())
+                         for t in tree_leaves(runs["cuda"])
+                         if t.is_floating_point())
+            if max(worst) > limit or not finite:
+                raise AssertionError(f"lm-train {arch} {alg}: card and CPU "
+                                     f"disagree")
 
 
 def remat_check(torch, archs=(LM_ARCH, SSM_ARCH, HYBRID_ARCH)):
     """The training forward's per-layer remat against the same layers
     called directly, on the card: for each arch of ``archs`` (by default
     qwen1.5-4b, falcon-mamba-7b, zamba2-1.2b; the moe family's
-    qwen3-moe-30b-a3b in moe_vlm_phases) one layer at full width (zamba2:
-    one mamba2 layer and the shared block after it), bf16 params from a
-    seed, one
+    qwen3-moe-30b-a3b in moe_vlm_phases, whisper-tiny in encdec_phases)
+    one layer at full width (zamba2: one mamba2 layer and the shared block
+    after it; whisper-tiny: one encoder layer over LM_SEQ frames and one
+    decoder layer, whose remat takes its cross-attention's K and V of the
+    encoder's output as inputs),
+    bf16 params from a seed, one
     sequence of LM_SEQ tokens: the features and the gradients of the LM
     loss in every layer leaf (the layers, zamba2's shared block, the head)
     through ``torch.func.grad`` equal bit for bit. The embedding's gradient
@@ -2815,16 +3014,30 @@ def remat_check(torch, archs=(LM_ARCH, SSM_ARCH, HYBRID_ARCH)):
         cfg = dataclasses.replace(get_arch(arch), n_layers=1)
         if cfg.family == "hybrid":
             cfg = dataclasses.replace(cfg, shared_attn_every=1)
+        batch, n_remat = {}, 1
+        if cfg.family == "encdec":
+            # one encoder layer over LM_SEQ frames and one decoder layer
+            # over a quarter as many tokens, its cross-attention's K and V
+            # of the encoder's output going into its remat as inputs
+            cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+                cfg.encoder, n_layers=1))
+            n_remat = 2
         params = init_params(model.model_specs(cfg), devlib.generator(
             "cuda", 2, 0), cfg.dtype, "cuda")
         gen = devlib.generator("cuda", 3, 0)
-        tokens = torch.randint(0, cfg.vocab, (1, LM_SEQ + 1), generator=gen,
+        seq = LM_SEQ // 4 if cfg.family == "encdec" else LM_SEQ
+        tokens = torch.randint(0, cfg.vocab, (1, seq + 1), generator=gen,
                                device="cuda")
+        batch["tokens"] = tokens[:, :-1]
+        if cfg.family == "encdec":
+            batch["enc_embeds"] = 0.02 * torch.randn(
+                1, LM_SEQ, cfg.d_model, generator=gen, device="cuda").to(
+                    getattr(torch, cfg.dtype))
         ctx = model.ModelCtx(kind="train")
         calls = []
 
         def loss(xp, yp):
-            feats = model.features(cfg, xp, {"tokens": tokens[:, :-1]}, ctx)
+            feats = model.features(cfg, xp, batch, ctx)
             logits = model.head_logits(cfg, yp, feats)
             return softmax_xent(logits, tokens[:, 1:]), feats
 
@@ -2851,11 +3064,12 @@ def remat_check(torch, archs=(LM_ARCH, SSM_ARCH, HYBRID_ARCH)):
         unequal = sum(not torch.equal(a, b) for a, b in zip(remat, direct))
         finite = all(bool(torch.isfinite(t).all()) for t in remat)
         print(f"remat vs direct on the card, {arch} ({cfg.family}, one "
-              f"layer at full width, seq {LM_SEQ}): {len(calls)} remat'd "
-              f"layer call, features and {len(remat) - 1} gradient leaves: "
+              f"layer{' of the encoder and one of the decoder' if n_remat > 1 else ''} "
+              f"at full width, seq {LM_SEQ}): {len(calls)} remat'd "
+              f"layer calls, features and {len(remat) - 1} gradient leaves: "
               f"{len(remat) - unequal} of {len(remat)} bit-equal, finite "
               f"{finite}", flush=True)
-        if unequal or not finite or len(calls) != 1:
+        if unequal or not finite or len(calls) != n_remat:
             raise AssertionError(f"remat vs direct on {arch}: {unequal} "
                                  f"leaves differ")
         del params, remat, direct
@@ -3526,6 +3740,8 @@ def main() -> int:
     free_device_memory(torch)
     # the MoE and vlm slice (ROADMAP 1a and 1b)
     add_counts(launches, moe_vlm_phases(torch, kerns))
+    # the encdec slice and the LM trainer's baselines (ROADMAP 1c with 1i)
+    add_counts(launches, encdec_phases(torch, kerns))
 
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCES[name],

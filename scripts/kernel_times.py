@@ -95,11 +95,12 @@ def main() -> int:
                              for k, f in extra.items()}}), flush=True)
 
     if "flash_attention" in opts.kernels:
-        for label, b, h, kv, s, d, dtype, window in cs.FLASH_CASES:
-            q, k, v = cs.flash_inputs(torch, gen, b, h, kv, s, d,
+        for (label, b, h, kv, sq, sk, d, dtype, window,
+             causal) in cs.FLASH_CASES:
+            q, k, v = cs.flash_inputs(torch, gen, b, h, kv, sq, sk, d,
                                       getattr(torch, dtype))
             report("flash_attention", label,
-                   lambda: fkern.flash_attention(q, k, v, causal=True,
+                   lambda: fkern.flash_attention(q, k, v, causal=causal,
                                                  window=window))
     if "mamba_scan" in opts.kernels:
         for label, b, s, di, n, dtype in cs.SCAN_CASES:

@@ -9,9 +9,10 @@ MHA, ``granite-20b`` MQA, ``deepseek-67b``), the vlm family
 (``internvl2-76b``, the language backbone with stubbed patch embeddings),
 the moe family (``qwen3-moe-30b-a3b``, ``llama4-scout-17b-a16e``), the ssm
 family (``falcon-mamba-7b``, mamba1) and the hybrid family
-(``zamba2-1.2b``, mamba2 with a shared attention block). The encdec family
-(``whisper-tiny``) comes with the slice that ports its encoder
-(ROADMAP.md).
+(``zamba2-1.2b``, mamba2 with a shared attention block) and the encdec
+family (``whisper-tiny``, an encoder over stubbed frame embeddings and a
+decoder with cross-attention): every architecture of the JAX package, in
+its registry's order.
 """
 from __future__ import annotations
 
@@ -293,9 +294,10 @@ INPUT_SHAPES = {
     "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
 }
 
-_ARCH_IDS = ("qwen2.5-14b", "granite-20b", "qwen1.5-4b", "deepseek-67b",
-             "internvl2-76b", "qwen3-moe-30b-a3b", "llama4-scout-17b-a16e",
-             "falcon-mamba-7b", "zamba2-1.2b")
+# the reference's registry, in its order
+_ARCH_IDS = ("whisper-tiny", "zamba2-1.2b", "qwen2.5-14b", "internvl2-76b",
+             "qwen3-moe-30b-a3b", "falcon-mamba-7b", "deepseek-67b",
+             "granite-20b", "llama4-scout-17b-a16e", "qwen1.5-4b")
 
 
 def _module_name(arch_id: str) -> str:
@@ -308,8 +310,7 @@ def list_arch_ids() -> Tuple[str, ...]:
 
 def get_arch(arch_id: str) -> ArchConfig:
     if arch_id not in _ARCH_IDS:
-        raise KeyError(f"unknown arch {arch_id!r}; the port has {_ARCH_IDS} "
-                       f"(whisper-tiny comes with a later slice)")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {_ARCH_IDS}")
     mod = importlib.import_module(
         f"repro_torch.configs.{_module_name(arch_id)}")
     return mod.CONFIG

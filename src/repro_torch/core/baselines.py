@@ -16,13 +16,17 @@ contributions:
 Each exposes the same client-batched (local_step, sync_update) contract as
 :mod:`repro_torch.core.adafbio`, so the federated runtime is
 algorithm-agnostic. ``k`` is always the step's per-client Neumann depths.
+The clients' gradients map over the client axis as AdaFBiO's do
+(:func:`repro_torch.core.adafbio.per_client`): under ``vmap``, or one
+client at a time for a problem that asks for it (the LM problem's
+``client_loop``), the same values either way.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Dict, Tuple
 
-from torch.func import grad, vmap
+from torch.func import grad
 
 from repro_torch.configs.base import FedConfig
 from repro_torch.core import adafbio
@@ -74,13 +78,26 @@ def _init_client(problem, fed_b):
                                                           yp, b, k)
 
 
+def _client_fns(fed: FedConfig, problem: BilevelProblem):
+    """The hypergradient and the LL gradient in y, each mapped over the
+    client axis as AdaFBiO maps them. The LL gradient is
+    ``grad(problem.g)`` over the whole LL batch, as the reference's
+    baselines take ``jax.grad(problem.g)``, not the problem's microbatched
+    ``grad_g_y``: at LM width its backward holds the activations of every
+    sequence of the batch at once (8 at the launcher's shape) where
+    AdaFBiO's holds one microbatch's."""
+    loop = problem.client_loop
+    return (adafbio.per_client(hypergrad_fn(problem, fed.neumann_k,
+                                            fed.theta), loop),
+            adafbio.per_client(grad(problem.g, argnums=1), loop))
+
+
 def make_fednest(fed: FedConfig, problem: BilevelProblem,
                  inner_steps: int = 2) -> Algorithm:
     """FedNest-style: per local step, ``inner_steps`` plain SGD updates on y,
     then one SGD hypergradient step on x. No VR, no adaptivity."""
     fed_b = dataclasses.replace(fed, adaptive="none")
-    hg = vmap(hypergrad_fn(problem, fed.neumann_k, fed.theta))
-    gy_fn = vmap(grad(problem.g, argnums=1))
+    hg, gy_fn = _client_fns(fed, problem)
 
     def local_step(states, adaptive_state, batches, k, t, m):
         del adaptive_state
@@ -109,8 +126,7 @@ def make_localbsgvrm(fed: FedConfig, problem: BilevelProblem,
     """Gao-2022-style: heavy-ball momentum-VR on the hypergradient, plain SGD
     on the LL, local steps + averaging; no adaptivity."""
     fed_b = dataclasses.replace(fed, adaptive="none")
-    hg = vmap(hypergrad_fn(problem, fed.neumann_k, fed.theta))
-    gy_fn = vmap(grad(problem.g, argnums=1))
+    hg, gy_fn = _client_fns(fed, problem)
 
     def local_step(states, adaptive_state, batches, k, t, m):
         del adaptive_state

@@ -223,11 +223,16 @@ class FederatedTrainer:
         return self.abstract_population_states(self.m)
 
     def abstract_server_state(self):
+        """The server state of the trainer's algorithm: its own FedConfig
+        says whether there are adaptive accumulators (a baseline's
+        ``adaptive="none"`` keeps none, whatever the trainer's
+        FedConfig)."""
+        adaptive = self.alg.fed.adaptive
         st = {"adaptive": {"b": TensorSpec((), torch.float32)},
               "t": TensorSpec((), torch.int32)}
-        if self.fed.adaptive != "none":
+        if adaptive != "none":
             st["adaptive"]["a"] = self._param_specs()["x"]
-        if self.fed.adaptive == "adabelief":
+        if adaptive == "adabelief":
             st["adaptive"]["w_prev"] = st["adaptive"]["a"]
             st["adaptive"]["v_norm_prev"] = TensorSpec((), torch.float32)
         return st
@@ -243,14 +248,23 @@ class FederatedTrainer:
         """Bank init over ``n = len(k)`` clients that share ``params``
         (``batch`` has a leading n axis, ``k`` their init Neumann depths):
         line 2's estimators, the server state and its warm start from the
-        averaged estimators. Returns ``(bank, last_sync, server)``."""
+        averaged estimators. Returns ``(bank, last_sync, server)``.
+
+        The warm start follows the algorithm's own FedConfig: a baseline
+        with ``adaptive="none"`` (adafbio_na, fedbioacc, fedavg_sgd,
+        fednest, localbsgvrm) has no accumulators to warm. The reference
+        warms by the trainer's FedConfig and so raises ``KeyError('a')``
+        for every baseline at the default ``adaptive="adam"`` (ROADMAP
+        section 3); where it runs (the trainer's ``adaptive="none"``) both
+        give the same state."""
         n = k.shape[0]
         bank = self.alg.init_client_state(params["x"], params["y"],
                                           split_client_batch(self.cfg, batch),
                                           k)
         server = self.alg.init_server_state(tree_index(bank["x"], 0))
-        if self.fed.adaptive != "none":
-            server = warm_adaptive(server, tree_mean_axis0(bank), self.fed)
+        if self.alg.fed.adaptive != "none":
+            server = warm_adaptive(server, tree_mean_axis0(bank),
+                                   self.alg.fed)
         return bank, torch.zeros((n,), dtype=torch.int32,
                                  device=self.device), server
 

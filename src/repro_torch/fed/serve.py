@@ -42,16 +42,25 @@ def serve_window(cfg: ArchConfig, shape: ShapeConfig) -> Optional[int]:
 
 def serve_batch_specs(cfg: ArchConfig, shape: ShapeConfig, kind: str
                       ) -> Tuple[Dict[str, TensorSpec], Dict[str, Any]]:
+    """The prefill's or decode's input shapes: an encdec prefill takes
+    ``max(S // 4, 8)`` decoder tokens and ``enc_embeds`` [B, S, d] (S the
+    frames); the embeddings in the model's dtype, as they enter the
+    residual stream."""
     b, s = shape.global_batch, shape.seq_len
+    emb = torch_dtype(cfg.dtype)
     specs: Dict[str, TensorSpec] = {}
     axes: Dict[str, Any] = {}
     if kind == "prefill":
-        specs["tokens"] = TensorSpec((b, s), torch.int32)
+        sdec = max(s // 4, 8) if cfg.family == "encdec" else s
+        specs["tokens"] = TensorSpec((b, sdec), torch.int32)
         axes["tokens"] = ("batch", None)
         if cfg.n_prefix_embeds:
             specs["prefix_embeds"] = TensorSpec(
-                (b, cfg.n_prefix_embeds, cfg.d_model), torch_dtype(cfg.dtype))
+                (b, cfg.n_prefix_embeds, cfg.d_model), emb)
             axes["prefix_embeds"] = ("batch", None, "act_embed")
+        if cfg.family == "encdec":
+            specs["enc_embeds"] = TensorSpec((b, s, cfg.d_model), emb)
+            axes["enc_embeds"] = ("batch", "seq", "act_embed")
     else:
         specs["token"] = TensorSpec((b, 1), torch.int32)
         axes["token"] = ("batch", None)
@@ -60,8 +69,9 @@ def serve_batch_specs(cfg: ArchConfig, shape: ShapeConfig, kind: str
 
 def serve_cache(cfg: ArchConfig, shape: ShapeConfig, kv_quant: bool = False):
     window = serve_window(cfg, shape)
+    enc_len = shape.seq_len if cfg.family == "encdec" else 0
     spec, axes = cache_spec(cfg, shape.global_batch, shape.seq_len,
-                            window=window, quant=kv_quant)
+                            window=window, enc_len=enc_len, quant=kv_quant)
     return spec, axes, window
 
 

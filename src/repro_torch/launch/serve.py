@@ -16,10 +16,13 @@ either package's train launcher, dense or sharded; ``--codec`` names the
 training run's codec for EF-bank layouts; ``repro_torch.serve.bridge``
 takes the client mean), or without ``--ckpt`` seed-initialized params (the
 weights' values do not change the work): the dense family (qwen2.5-14b,
-qwen1.5-4b, granite-20b), the ssm family (falcon-mamba-7b, its prefill on
-the ``mamba_scan`` kernel) and the hybrid family (zamba2-1.2b);
-``--kv-quant`` needs an attention KV cache, so the ssm and hybrid families
-refuse it. ``--device cpu`` runs the plain PyTorch paths on the CPU, for a
+qwen1.5-4b, granite-20b, deepseek-67b), the vlm family (internvl2-76b,
+with prefix embeddings), the moe family (qwen3-moe-30b-a3b,
+llama4-scout-17b-a16e), the ssm family (falcon-mamba-7b, its prefill on
+the ``mamba_scan`` kernel), the hybrid family (zamba2-1.2b) and the encdec
+family (whisper-tiny: each request carries ``--max-len`` frames of
+encoder embeddings from the load generator); ``--kv-quant`` needs an
+attention KV cache, so the ssm and hybrid families refuse it. ``--device cpu`` runs the plain PyTorch paths on the CPU, for a
 ``--reduced`` model. The flags are the JAX launcher's; those that need a
 part of the port still to come raise and name it: ``--mesh local`` (the
 sharding slice), ``--metrics-out`` (the obs/ slice).
@@ -40,10 +43,11 @@ from repro_torch.serve import (Engine, LoadSpec, generate_requests,
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
-                    help="architecture id (qwen2.5-14b, qwen1.5-4b, "
-                         "granite-20b, deepseek-67b, internvl2-76b, "
-                         "qwen3-moe-30b-a3b, llama4-scout-17b-a16e, "
-                         "falcon-mamba-7b, zamba2-1.2b)")
+                    help="architecture id (repro_torch.configs."
+                         "list_arch_ids(): whisper-tiny, zamba2-1.2b, "
+                         "qwen2.5-14b, internvl2-76b, qwen3-moe-30b-a3b, "
+                         "falcon-mamba-7b, deepseek-67b, granite-20b, "
+                         "llama4-scout-17b-a16e, qwen1.5-4b)")
     ap.add_argument("--reduced", action="store_true",
                     help="smoke-size variant of the same family")
     ap.add_argument("--ckpt", default=None,
@@ -62,7 +66,8 @@ def parse_args(argv=None):
     ap.add_argument("--kv-quant", action="store_true",
                     help="int8 KV-cache pool: prefill rows quantize on the "
                          "way in, decode attends through the int8 kernel "
-                         "(dense family only: ssm and hybrid raise)")
+                         "(the attention families; ssm and hybrid raise; "
+                         "the encdec cross cache stays dense)")
     ap.add_argument("--kv-kernel", default="auto", choices=list(KV_KERNELS),
                     help="path of prefill and int8 decode: kernel (the "
                          "CUDA kernels: flash attention, int8 decode, the "
@@ -135,7 +140,10 @@ def main(argv=None):
                     max_new_cap=args.max_new, seed=args.seed)
     pre = ((cfg.n_prefix_embeds, cfg.d_model) if cfg.n_prefix_embeds
            else None)
-    reqs = generate_requests(spec, cfg.vocab, prefix_shape=pre)
+    enc = ((args.max_len, cfg.d_model) if cfg.family == "encdec"
+           else None)
+    reqs = generate_requests(spec, cfg.vocab, enc_shape=enc,
+                             prefix_shape=pre)
     t0 = time.perf_counter()
     done = replay(engine, reqs)
     wall = time.perf_counter() - t0

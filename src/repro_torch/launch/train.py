@@ -78,10 +78,11 @@ NOT_PORTED = (
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
-                    help="architecture id (qwen1.5-4b, qwen2.5-14b, "
-                         "granite-20b, deepseek-67b, internvl2-76b, "
-                         "qwen3-moe-30b-a3b, llama4-scout-17b-a16e, "
-                         "falcon-mamba-7b, zamba2-1.2b)")
+                    help="architecture id (repro_torch.configs."
+                         "list_arch_ids(): whisper-tiny, zamba2-1.2b, "
+                         "qwen2.5-14b, internvl2-76b, qwen3-moe-30b-a3b, "
+                         "falcon-mamba-7b, deepseek-67b, granite-20b, "
+                         "llama4-scout-17b-a16e, qwen1.5-4b)")
     ap.add_argument("--algorithm", default="adafbio")
     ap.add_argument("--reduced", action="store_true",
                     help="smoke-size variant of the same family")

@@ -1,7 +1,9 @@
-"""The port's models: the dense, ssm and hybrid families (``model``), their
-attention primitives (``attention``) and selective state-space layers
-(``ssm``), parameter specs (``params``) and the serving paths, prefill and
-one-token decode against a KV cache or SSM state (``decode``)."""
+"""The port's models: every family of the JAX package (``model``; the moe
+layer in ``moe``), their attention primitives (``attention``) and
+selective state-space layers (``ssm``), parameter specs (``params``), the
+training forward's per-layer remat (``remat``) and the serving paths,
+prefill and one-token decode against a KV cache, SSM state or the encdec
+cross cache (``decode``)."""
 from repro_torch.models.decode import (cache_spec, decode_step, init_cache,
                                        prefill)
 from repro_torch.models.model import (ModelCtx, features, forward,

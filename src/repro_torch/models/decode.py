@@ -1,6 +1,5 @@
 """Serving paths: prefill (build the cache) and the one-token decode
-against it (``src/repro/models/decode.py``), for the dense, vlm, moe, ssm
-and hybrid families.
+against it (``src/repro/models/decode.py``), for every family.
 
 Cache layouts (the leading dim walks the layers):
   dense/vlm/moe : {"k", "v": [L,B,W,KV,Dh]}  W = window (ring) or max_len
@@ -11,6 +10,12 @@ Cache layouts (the leading dim walks the layers):
   hybrid        : {"h": [L,B,H,P,N] f32, "conv": [L,B,cw-1,di+2N]} and the
                   shared block's {"k", "v": [nseg,B,W,KV,Dh]} (bf16 on the
                   serve path: the family has no int8 pool)
+  encdec        : the decoder's self-attention {"k", "v"} as dense/vlm/moe
+                  (int8 with ``quant=True``), and the cross-attention's
+                  {"ck", "cv": [L,B,Senc,KV,Dh]} in the cache's dtype,
+                  never int8: built once at prefill from the encoder's
+                  output over Senc = ``enc_len`` frames, then read by
+                  every tick
 
 A moe layer routes each batch row as its own group (``models/moe.py``):
 a decode tick routes one token a row (capacity 4, nothing drops), a
@@ -19,6 +24,12 @@ as in the reference engine, which prefills each prompt unpadded.
 
 ``pos`` is the number of tokens already in the cache; RoPE uses absolute
 positions, so ring buffers (sliding window) stay correct without rotation.
+An encdec prefill runs the encoder over the request's frames first; its
+three attentions (the encoder's self-attention and the cross-attention
+not causal, the cross-attention's queries the prompt's and its keys the
+frames) all go through the ``flash_attention`` kernel. A decode tick's
+cross-attention attends over the dense cross cache with the plain
+``attend_decode``, as the reference's does (no Pallas kernel there).
 
 The JAX functions return a new cache; these write into the cache they are
 given, layer slice by layer slice, and return it: a serve pool at full
@@ -41,8 +52,9 @@ from repro_torch.kernels.quant_decode import (quant_decode_attention,
                                               quantize_kv)
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.model import (ModelCtx, check_family, embed_tokens,
-                                      head_logits, layer, mixer_segments,
+from repro_torch.models.model import (ModelCtx, check_family, cross_kv,
+                                      cross_query, embed_tokens, head_logits,
+                                      layer, layers, mixer_segments,
                                       mlp_block, out_proj, qkv, rmsnorm)
 from repro_torch.models.params import TensorSpec, torch_dtype
 
@@ -50,13 +62,15 @@ from repro_torch.models.params import TensorSpec, torch_dtype
 # ------------------------------------------------------------------ cache
 
 def cache_spec(cfg: ArchConfig, batch: int, max_len: int,
-               window: Optional[int] = None, dtype=torch.bfloat16,
-               quant: bool = False
+               window: Optional[int] = None, enc_len: int = 0,
+               dtype=torch.bfloat16, quant: bool = False
                ) -> Tuple[Dict[str, TensorSpec], Dict[str, Any]]:
-    """(TensorSpec tree, logical-axes tree) of the cache. ``quant=True``:
-    int8 K/V with per-(token, head) f32 scales, half the bytes of a bf16
-    cache (the attention families; the ssm and hybrid caches ignore it, as the
-    reference's do)."""
+    """(TensorSpec tree, logical-axes tree) of the cache, in the
+    reference's argument order. ``quant=True``: int8 K/V with
+    per-(token, head) f32 scales, half the bytes of a bf16 cache (the
+    attention families; the ssm and hybrid caches ignore it, as the
+    reference's do). ``enc_len``: the encdec cross cache's frames (its
+    ``ck``/``cv`` stay in ``dtype`` with ``quant`` too)."""
     check_family(cfg)
     dtype = torch_dtype(dtype)
     L = cfg.n_layers
@@ -66,7 +80,7 @@ def cache_spec(cfg: ArchConfig, batch: int, max_len: int,
     spec: Dict[str, TensorSpec] = {}
     axes: Dict[str, Any] = {}
     fam = cfg.family
-    if fam in ("dense", "vlm", "moe"):
+    if fam in ("dense", "vlm", "moe", "encdec"):
         kvs = (L, batch, w, cfg.n_kv_heads, hd)
         kv_dtype = torch.int8 if quant else dtype
         spec["k"], spec["v"] = TensorSpec(kvs, kv_dtype), TensorSpec(
@@ -76,6 +90,11 @@ def cache_spec(cfg: ArchConfig, batch: int, max_len: int,
             spec["k_scale"] = TensorSpec(kvs[:-1], torch.float32)
             spec["v_scale"] = TensorSpec(kvs[:-1], torch.float32)
             axes["k_scale"] = axes["v_scale"] = kv_ax[:-1]
+    if fam == "encdec":
+        ckvs = (L, batch, enc_len, cfg.n_kv_heads, hd)
+        spec["ck"], spec["cv"] = TensorSpec(ckvs, dtype), TensorSpec(ckvs,
+                                                                     dtype)
+        axes["ck"] = axes["cv"] = kv_ax
     if fam in ("ssm", "hybrid"):
         s = cfg.ssm
         di = s.expand * cfg.d_model
@@ -105,9 +124,10 @@ def zeros(spec: Dict[str, TensorSpec], device) -> Dict[str, torch.Tensor]:
             for k, s in spec.items()}
 
 
-def init_cache(cfg, batch, max_len, window=None, dtype=torch.bfloat16,
-               quant=False, device="cuda"):
-    spec, _ = cache_spec(cfg, batch, max_len, window, dtype, quant)
+def init_cache(cfg, batch, max_len, window=None, enc_len=0,
+               dtype=torch.bfloat16, quant=False, device="cuda"):
+    spec, _ = cache_spec(cfg, batch, max_len, window=window,
+                         enc_len=enc_len, dtype=dtype, quant=quant)
     return zeros(spec, device)
 
 
@@ -186,23 +206,66 @@ def _fill_ring(k_seq: torch.Tensor, w: int, window) -> torch.Tensor:
     return buf
 
 
-def prefill_attention(q, k, v, ctx: ModelCtx,
-                      flash_past: Optional[int]) -> torch.Tensor:
-    """Causal self-attention of the prompt. q: [B,S,H,Dh]; k,v: [B,S,KV,Dh];
-    the kernel sees [B,heads,S,Dh] views and answers in q's layout. The
-    reference path takes ``attend_flash`` past ``flash_past`` keys (None:
-    never), ``attend_full`` below."""
+def prefill_attention(q, k, v, ctx: ModelCtx, flash_past: Optional[int],
+                      causal: bool = True,
+                      window: Optional[int] = None) -> torch.Tensor:
+    """Attention of a whole prompt (or of the encoder's frames). q:
+    [B,Sq,H,Dh]; k,v: [B,Sk,KV,Dh], Sk = Sq for self-attention, the frames
+    for cross-attention; the kernel sees [B,heads,S,Dh] views and answers
+    in q's layout. The reference path takes ``attend_flash`` past
+    ``flash_past`` keys (None: never), ``attend_full`` below."""
     if ctx.attn == "reference":
         if flash_past is not None and k.shape[1] > flash_past:
-            return attn_lib.attend_flash(q, k, v, causal=True,
-                                         window=ctx.window,
-                                         chunk=ctx.attn_chunk)
-        return attn_lib.attend_full(q, k, v, causal=True, window=ctx.window)
+            return attn_lib.attend_flash(q, k, v, causal=causal,
+                                         window=window, chunk=ctx.attn_chunk)
+        return attn_lib.attend_full(q, k, v, causal=causal, window=window)
     fn = (kref.flash_attention_ref if ctx.attn == "plain"
           else flash_attention)
     o = fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-           causal=True, window=ctx.window)
+           causal=causal, window=window)
     return o.transpose(1, 2)
+
+
+def encode(cfg: ArchConfig, xp, enc_embeds: torch.Tensor,
+           ctx: ModelCtx) -> torch.Tensor:
+    """The encdec encoder of a prefill (``models/model.encoder_forward``
+    with its attention through :func:`prefill_attention`): each layer's
+    self-attention over the frames, not causal, RoPE over the frame
+    positions (the reference path takes ``attend_flash`` past
+    ``attn_chunk`` frames), then ``ln_out``."""
+    h = enc_embeds.to(xp["embed"].dtype)
+    tables = attn_lib.rope_tables(
+        torch.arange(h.shape[1], device=h.device), cfg.resolved_head_dim,
+        cfg.rope_theta)
+    for lp in layers(xp["encoder"]["layers"]):
+        hn = rmsnorm(h, lp["ln_attn"], cfg.norm_eps)
+        q, k, v = qkv(cfg, lp, hn)
+        q = attn_lib.apply_rope(q, *tables)
+        k = attn_lib.apply_rope(k, *tables)
+        o = prefill_attention(q, k, v, ctx, ctx.attn_chunk, causal=False,
+                              window=ctx.window)
+        h = mlp_block(cfg, lp, h + out_proj(o, lp["wo"]))
+    return rmsnorm(h, xp["encoder"]["ln_out"], cfg.norm_eps)
+
+
+def _cross_prefill_block(cfg, p, h, enc_out, ctx: ModelCtx):
+    """The prefill's cross-attention: the prompt's queries against K/V of
+    the encoder's output (no RoPE, no mask; the reference path takes
+    ``attend_flash`` past ``attn_chunk`` frames). Returns (h', (K, V)) for
+    the cross cache."""
+    k, v = cross_kv(cfg, p, enc_out)
+    o = prefill_attention(cross_query(cfg, p, h), k, v, ctx, ctx.attn_chunk,
+                          causal=False)
+    return h + out_proj(o, p["cwo"]), (k, v)
+
+
+def _cross_decode_block(cfg, p, h, ck, cv):
+    """One token's cross-attention over the dense cross cache [B,Senc,KV,Dh]
+    (every frame valid), through the plain ``attend_decode`` on every
+    path, as the reference's."""
+    o = attn_lib.attend_decode(cross_query(cfg, p, h), ck, cv,
+                               pos=ck.shape[1])
+    return h + out_proj(o, p["cwo"])
 
 
 # ------------------------------------------------------------------ prefill
@@ -226,7 +289,7 @@ def prefill(cfg: ArchConfig, params, batch, cache, ctx: ModelCtx):
         q, k, v = qkv(cfg, p, hn)
         q = attn_lib.apply_rope(q, *tables)
         k = attn_lib.apply_rope(k, *tables)
-        o = prefill_attention(q, k, v, ctx, flash_past)
+        o = prefill_attention(q, k, v, ctx, flash_past, window=ctx.window)
         return h + out_proj(o, p["wo"]), (_fill_ring(k, w, ctx.window),
                                           _fill_ring(v, w, ctx.window))
 
@@ -248,11 +311,17 @@ def prefill(cfg: ArchConfig, params, batch, cache, ctx: ModelCtx):
                 cache["v"][seg].copy_(v)
                 h = mlp_block(cfg, xp["shared"], h)
         return head_logits(cfg, yp, h[:, -1:]), cache
+    enc_out = (encode(cfg, xp, batch["enc_embeds"], ctx)
+               if cfg.family == "encdec" else None)
     for i in range(cfg.n_layers):
         lp = layer(xp["layers"], i)
         h, (k, v) = attention(lp, h, 4096 if ctx.kind == "prefill" else None)
         cache["k"][i].copy_(k)
         cache["v"][i].copy_(v)
+        if enc_out is not None:
+            h, (ck, cv) = _cross_prefill_block(cfg, lp, h, enc_out, ctx)
+            cache["ck"][i].copy_(ck)
+            cache["cv"][i].copy_(cv)
         h = mlp_block(cfg, lp, h)
     return head_logits(cfg, yp, h[:, -1:]), cache
 
@@ -296,5 +365,8 @@ def decode_step(cfg: ArchConfig, params, cache, token, pos, ctx: ModelCtx):
                   else None)
         h = _attn_decode_block(cfg, lp, h, cache["k"][i], cache["v"][i],
                                step, scales=scales, attn=ctx.attn)
+        if cfg.family == "encdec":
+            h = _cross_decode_block(cfg, lp, h, cache["ck"][i],
+                                    cache["cv"][i])
         h = mlp_block(cfg, lp, h)
     return head_logits(cfg, yp, h), cache

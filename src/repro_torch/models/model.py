@@ -1,5 +1,5 @@
-"""The unified model of the serve path (``src/repro/models/model.py``) for
-the families ported so far:
+"""The unified model (``src/repro/models/model.py``) for every family of
+the JAX package:
   dense/vlm : GQA attention + gated MLP (optional qkv bias / window /
               prefix fusion)
   moe       : GQA attention + top-k MoE (optional shared FFN;
@@ -7,14 +7,20 @@ the families ported so far:
   ssm       : mamba1 mixer only (``models/ssm.py``)
   hybrid    : mamba2 mixers + ONE weight-tied shared attention block every
               ``shared_attn_every`` layers
+  encdec    : whisper-style encoder over stubbed frame embeddings
+              (``enc_embeds``, not causal, RoPE over the frames, a final
+              norm) + a decoder whose layers add cross-attention over the
+              encoder's output (no norm on that side, no RoPE)
 
 Param tree layout (the bilevel split is structural, as in the reference):
-  {"x": {"embed", "layers", ["shared"]},  # UL variable (backbone)
-   "y": {"final_norm", "head"}}           # LL variable (head)
-Every leaf of ``x["layers"]`` is stacked over the layers on its first axis,
-and the forward walks the layers with a Python loop over views of them.
-The encdec family raises ``NotImplementedError`` naming the slice that
-brings it.
+  {"x": {"embed", "layers", ["shared"], ["encoder"]},  # UL (backbone)
+   "y": {"final_norm", "head"}}                        # LL (head)
+Every leaf of ``x["layers"]`` (and of ``x["encoder"]["layers"]``) is
+stacked over the layers on its first axis, and the forward walks the
+layers with a Python loop over views of them. An encdec decoder layer's
+cross-attention leaves carry the prefix ``c`` (``cln_attn``, ``cwq``,
+``cwk``, ``cwv``, ``cwo``); ``x["encoder"]`` holds ``layers`` and
+``ln_out``.
 """
 from __future__ import annotations
 
@@ -31,21 +37,14 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.params import ParamSpec
 from repro_torch.models.remat import remat_layer
 
-PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
-LATER_SLICE = {
-    "encdec": "ROADMAP item 1c (the encoder and cross-attention)",
-}
+PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """Raise unless ``cfg`` is of a family the port runs so far."""
-    if cfg.family in PORTED_FAMILIES:
-        return
-    if cfg.family in LATER_SLICE:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: it "
-            f"comes with {LATER_SLICE[cfg.family]}")
-    raise ValueError(f"unknown family {cfg.family!r}")
+    """Raise ``ValueError`` unless ``cfg`` is of a family the model
+    knows."""
+    if cfg.family not in PORTED_FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +60,8 @@ class ModelCtx:
     4096 prompt tokens, or past ``attn_chunk`` in the hybrid's shared
     block; the int8 cache dequantized to the model dtype, then
     ``attend_decode``; the mamba1 prefill's chunked associative scan of
-    ``ssm_chunk`` steps)."""
+    ``ssm_chunk`` steps; the encdec encoder's and cross-attention's
+    ``attend_flash`` past ``attn_chunk`` keys)."""
     window: Optional[int] = None      # sliding-window attention
     kind: str = "train"               # train | prefill | decode
     attn_chunk: int = 1024
@@ -70,6 +70,11 @@ class ModelCtx:
 
 
 ATTN_PATHS = ("kernel", "plain", "reference")
+# an encdec decoder layer's cross-attention K and V, projected from the
+# encoder's output outside the layer (``features``), ride in its params
+# under these keys in place of the leaves that project them
+CROSS_KV = ("ck", "cv")
+CROSS_KV_LEAVES = ("cwk", "cwv", "cbk", "cbv")
 
 
 # ------------------------------------------------------------------ specs
@@ -132,6 +137,14 @@ def model_specs(cfg: ArchConfig) -> Dict[str, Any]:
                                            dtype="float32")}
     else:
         x["layers"] = {**_attn_specs(cfg, L), **_mlp_specs(cfg, L, cfg.d_ff)}
+    if cfg.family == "encdec":
+        x["layers"].update(_attn_specs(cfg, L, prefix="c"))  # cross-attention
+        le = cfg.encoder.n_layers
+        x["encoder"] = {
+            "layers": {**_attn_specs(cfg, le), **_mlp_specs(cfg, le,
+                                                            cfg.d_ff)},
+            "ln_out": ParamSpec((cfg.d_model,), ("embed",), init="ones",
+                                dtype="float32")}
     y = {"final_norm": ParamSpec((cfg.d_model,), ("embed",), init="ones",
                                  dtype="float32"),
          "head": ParamSpec((cfg.d_model, cfg.vocab), ("embed", "vocab"))}
@@ -202,6 +215,35 @@ def _attn_block(cfg: ArchConfig, p, h, ctx: ModelCtx, *, pos,
     return h + out_proj(o, p["wo"])
 
 
+def cross_query(cfg: ArchConfig, p, h: torch.Tensor) -> torch.Tensor:
+    """An encdec decoder layer's cross-attention Q [B,S,H,Dh]: from its
+    normed input, no RoPE."""
+    q = proj(rmsnorm(h, p["cln_attn"], cfg.norm_eps), p["cwq"])
+    return q + p["cbq"] if cfg.qkv_bias and "cbq" in p else q
+
+
+def cross_kv(cfg: ArchConfig, p, enc_out: torch.Tensor):
+    """Its K and V [B,Senc,KV,Dh]: from the encoder's output as it is (no
+    norm, no RoPE)."""
+    k, v = proj(enc_out, p["cwk"]), proj(enc_out, p["cwv"])
+    if cfg.qkv_bias and "cbk" in p:
+        k, v = k + p["cbk"], v + p["cbv"]
+    return k, v
+
+
+def _cross_block(cfg: ArchConfig, p, h, k, v, ctx: ModelCtx):
+    """Cross-attention block of the training forward: Q from ``h`` over
+    the encoder's K and V, no mask (``attend_flash`` past ``attn_chunk``
+    frames)."""
+    q = cross_query(cfg, p, h)
+    if k.shape[1] > ctx.attn_chunk:
+        o = attn_lib.attend_flash(q, k, v, causal=False, window=ctx.window,
+                                  chunk=ctx.attn_chunk)
+    else:
+        o = attn_lib.attend_full(q, k, v, causal=False)
+    return h + out_proj(o, p["cwo"])
+
+
 def mlp_block(cfg: ArchConfig, p, h: torch.Tensor) -> torch.Tensor:
     """The layer's MLP with its norm and residual: the gated MLP, or the
     MoE layer for the moe family (the hybrid's shared block is dense)."""
@@ -238,8 +280,11 @@ def features(cfg: ArchConfig, xp, batch: Dict[str, torch.Tensor],
     layer. A layer then keeps only its input for the backward, which
     recomputes it (the falcon-mamba-7b scan's residuals are gigabytes a
     layer). The hybrid's weight-tied shared block runs directly, as in the
-    reference (``_hybrid_seq``). The values and gradients are those of the
-    direct layers, bit for bit."""
+    reference (``_hybrid_seq``). An encdec model runs its encoder first
+    (:func:`encoder_forward`), then each decoder layer: self-attention,
+    cross-attention over K and V projected from the encoder's output, the
+    MLP. The values and gradients are those of the direct layers, bit for
+    bit."""
     check_family(cfg)
     tokens = batch["tokens"]
     h = embed_tokens(cfg, xp, tokens, batch.get("prefix_embeds"))
@@ -263,6 +308,25 @@ def features(cfg: ArchConfig, xp, batch: Dict[str, torch.Tensor],
                 h = mlp_block(cfg, xp["shared"], h)
         return h
 
+    if cfg.family == "encdec":
+        enc_out = encoder_forward(cfg, xp, batch["enc_embeds"], ctx)
+
+        def decoder_layer(h, lp):
+            lpos = torch.arange(h.shape[1], device=h.device)
+            h = _attn_block(cfg, lp, h, ctx, pos=lpos)
+            h = _cross_block(cfg, lp, h, *(lp[n] for n in CROSS_KV), ctx)
+            return mlp_block(cfg, lp, h)
+
+        for lp in per_layer:
+            # K and V are projected here and go into the layer as entries
+            # of its params: under remat they are then the Function's
+            # inputs, so the gradient reaches x["encoder"], and enc_out's
+            # gradient sums its 2L uses in the same order as without remat
+            inner = {n: t for n, t in lp.items() if n not in CROSS_KV_LEAVES}
+            h = run(decoder_layer, h, {**inner, **dict(zip(
+                CROSS_KV, cross_kv(cfg, lp, enc_out)))})
+        return h
+
     def dense_layer(h, lp):
         # the positions are made here, not closed over: a layer under
         # remat_layer may close over no tensor
@@ -272,6 +336,28 @@ def features(cfg: ArchConfig, xp, batch: Dict[str, torch.Tensor],
     for lp in per_layer:
         h = run(dense_layer, h, lp)
     return h
+
+
+def encoder_forward(cfg: ArchConfig, xp, enc_embeds: torch.Tensor,
+                    ctx: ModelCtx) -> torch.Tensor:
+    """The whisper-style encoder over stubbed frame embeddings [B,Senc,d]:
+    each layer self-attention (not causal, RoPE over the frame positions;
+    ``attend_flash`` past ``attn_chunk`` frames) and the MLP, under remat
+    in training; then ``ln_out``. The embeddings enter in the model's
+    dtype, as the prefix embeddings do (``embed_tokens``): the trainer's
+    batches carry them in bf16 whatever the model's dtype."""
+    ep = xp["encoder"]
+    h = enc_embeds.to(xp["embed"].dtype)
+
+    def encoder_layer(h, lp):
+        lpos = torch.arange(h.shape[1], device=h.device)
+        return mlp_block(cfg, lp, _attn_block(cfg, lp, h, ctx, pos=lpos,
+                                              causal=False))
+
+    for lp in layers(ep["layers"]):
+        h = (remat_layer(encoder_layer, h, lp) if ctx.kind == "train"
+             else encoder_layer(h, lp))
+    return rmsnorm(h, ep["ln_out"], cfg.norm_eps)
 
 
 def mixer_segments(cfg: ArchConfig):

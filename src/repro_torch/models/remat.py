@@ -81,6 +81,10 @@ def remat_layer(body: Body, h: torch.Tensor,
     their gradients reach the stacked leaves they view. ``body`` may close
     over no tensor: under ``torch.func``'s transforms a tensor reached only
     through the closure is not one of the Function's inputs, and the
-    transforms refuse it."""
+    transforms refuse it. A tensor the layer needs besides ``h`` and its
+    params therefore rides in ``p`` under a key of its own (an encdec
+    decoder layer's ``p["ck"]`` and ``p["cv"]``, its cross-attention's K
+    and V of the encoder's output): it is then an input like the params,
+    and its gradient flows back through it."""
     keys = tuple(p)
     return _Remat.apply(body, keys, h, *(p[k] for k in keys))

@@ -38,15 +38,15 @@ from repro_torch.kernels.quant_decode import quantize_kv
 from repro_torch.models.decode import zeros
 from repro_torch.models.model import check_family
 
-# families with an attention KV cache (the reference's list; encdec is not
-# ported yet)
+# families with an attention KV cache (the reference's list)
 QUANT_FAMILIES = ("dense", "vlm", "moe", "encdec")
 
 @dataclasses.dataclass
 class Request:
     """One generation request. ``tokens``: [plen] int32 prompt.
-    ``prefix_embeds`` ([n_prefix, d], VLM archs) rides along when the
-    architecture needs it; ``arrival_s`` is the open-loop arrival offset
+    ``prefix_embeds`` ([n_prefix, d], VLM archs) and ``enc_embeds``
+    ([max_len, d], encdec archs: the encoder's frames, as many as the
+    engine's ``max_len``) ride along when the architecture needs them; ``arrival_s`` is the open-loop arrival offset
     stamped by the load generator."""
     rid: int
     tokens: np.ndarray
@@ -166,7 +166,8 @@ class Engine:
         """Write a prefilled B=1 cache row into pool slot ``slot``: every
         leaf carries the batch at axis 1, so one loop covers every family.
         With ``kv_quant`` the row's K/V are quantized per (token, head) on
-        the way in."""
+        the way in; an encdec row's cross cache ``ck``/``cv`` goes in
+        dense, as the reference's ``_quantize_row`` leaves it."""
         for key, val in row.items():
             if self.kv_quant and key in ("k", "v"):
                 levels, scale = quantize_kv(val[:, 0])
@@ -221,6 +222,14 @@ class Engine:
                 pe = np.zeros(spec.shape[1:], np.float32)
             batch["prefix_embeds"] = torch.from_numpy(
                 np.asarray(pe, np.float32)[None]).to(self.device, spec.dtype)
+        if "enc_embeds" in self._pre["batch_specs"]:
+            if req.enc_embeds is None:
+                raise ValueError(f"request {req.rid}: encoder-decoder arch "
+                                 f"needs enc_embeds [{self.max_len}, d]")
+            spec = self._pre["batch_specs"]["enc_embeds"]
+            batch["enc_embeds"] = torch.from_numpy(
+                np.asarray(req.enc_embeds, np.float32)[None]).to(
+                    self.device, spec.dtype)
         logits, row = self._prefill(self.params, batch, self._row)
         self._scatter_row(row, slot)
         first = int(self._argmax(logits)[0].item())

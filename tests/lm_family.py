@@ -2,7 +2,8 @@
 one (``test_torch_lm_ssm.py``, ``test_torch_lm_ssm_train.py``,
 ``test_torch_lm_hybrid_train.py``, ``test_torch_lm_hybrid_tail.py`` for
 the ssm and hybrid families; ``test_torch_lm_moe.py`` and
-``test_torch_lm_vlm.py`` for the moe, vlm and dense ones): the cases and
+``test_torch_lm_vlm.py`` for the moe, vlm and dense ones;
+``test_torch_lm_encdec.py`` for the encdec one): the cases and
 their chunk, the SSD witness, both packages' trainers on a case, the LM
 problem's test and the trainer tests. A test
 file imports the trainer tests it runs and picks their cases with the
@@ -12,7 +13,8 @@ function whose cases are spread over files that each stay within a few
 minutes.
 
 The LM problem's test: f, g and their gradients in f32 at one and two
-microbatches, with the prefix embeddings where the arch takes them.
+microbatches, with the prefix embeddings or the encoder's frame
+embeddings where the arch takes them.
 
 The trainer tests, in f32 with ``fused="on"`` on both sides:
 
@@ -27,7 +29,12 @@ The trainer tests, in f32 with ``fused="on"`` on both sides:
   port's.
 
 The reference's draws (params, tokens, Neumann depths) are carried across
-through numpy, as in ``test_torch_lm_train.py``, whose tolerances apply."""
+through numpy, as in ``test_torch_lm_train.py``, whose tolerances apply.
+The encdec batches' frame embeddings (bf16 in both packages' batch specs)
+are widened to f32 for the f32 trainers (:func:`frames_in_f32`): the
+reference's encoder scan refuses a bf16 carry that its f32 layers turn
+into f32 (ROADMAP section 3); the port casts them to the model's dtype
+itself."""
 import functools
 
 import numpy as np
@@ -69,7 +76,8 @@ from repro_torch.serve import bridge  # noqa: E402
 # with no shared block after it (the reference's ``_hybrid_seq`` ``rem``);
 # 2 moe layers of 4 experts (top 2; top 1 beside the shared FFN, with 8
 # prefix embeddings); 2 vlm layers with 8 prefix embeddings; 2 dense
-# layers; the attention archs GQA at 2 kv heads
+# layers; the attention archs GQA at 2 kv heads; whisper-tiny at 2
+# encoder and 2 decoder layers (MHA, 4 heads)
 CASES = {"falcon-mamba-7b": ("falcon-mamba-7b", {}),
          "zamba2-1.2b": ("zamba2-1.2b", {}),
          "zamba2-1.2b-3L": ("zamba2-1.2b", {"n_layers": 3}),
@@ -77,7 +85,8 @@ CASES = {"falcon-mamba-7b": ("falcon-mamba-7b", {}),
          "llama4-scout-17b-a16e": ("llama4-scout-17b-a16e",
                                    {"n_kv_heads": 2}),
          "internvl2-76b": ("internvl2-76b", {"n_kv_heads": 2}),
-         "deepseek-67b": ("deepseek-67b", {"n_kv_heads": 2})}
+         "deepseek-67b": ("deepseek-67b", {"n_kv_heads": 2}),
+         "whisper-tiny": ("whisper-tiny", {})}
 # the scans' chunk: the training sequences (L.SEQ = 32) span 2 chunks, the
 # zeta_0 and Neumann sequences (64) 4, so the state carried between chunks
 # is differentiated
@@ -90,6 +99,34 @@ CHUNK = 16
 # launcher's rho (test_torch_lm_train.RHO). Readings after 4 steps: 1.54e-4
 # (zamba2 3 layers, w), 1.5e-4 (zamba2 2 layers), below 1e-4 (falcon).
 EAGER_REL = 1e-3
+# The stages of the trainer tests are held at TRAIN_REL, but for
+# whisper-tiny's at ENCDEC_STAGE_REL. Its first local step parts from the
+# reference by up to 1.28e-4 normwise in w's cross-attention leaves
+# (cln_attn, cwq, cwk; every other leaf below 2e-5), and both packages are
+# that far from a float64 witness of the same stage (the port 1.03e-4,
+# the reference 1.16e-4): over the stub frames the cross-attention is
+# near uniform at init, so those gradients are small and their f32
+# rounding relatively large; the adaptive step's warm start then
+# magnifies it (test_torch_lm_encdec.py holds the witness rule). Later
+# stages read below 3.9e-5. Free-running, that first difference grows as
+# EAGER_REL's note says: 1.22e-3 after the 4 steps (the encoder's wq and
+# wk in w), held at ENCDEC_EAGER_REL; each package's free run then sits
+# 2.3e-3 (the port) and 1.6e-4 (the reference) from a float64 run of the
+# port, while stage by stage, each from the same state, the port is no
+# farther from that witness than the reference.
+ENCDEC_STAGE_REL = 3e-4
+ENCDEC_EAGER_REL = 5e-3
+
+
+def stage_rel(case):
+    return (ENCDEC_STAGE_REL if CASES[case][0] == "whisper-tiny"
+            else L.TRAIN_REL)
+
+
+def eager_rel(case):
+    return ENCDEC_EAGER_REL if CASES[case][0] == "whisper-tiny" else EAGER_REL
+
+
 # the population round: N clients, round 0's cohort. At SEED its second
 # client draws depth K-1 at the second step (the bf16 feature cache), so
 # the round is held at CACHE_REL, as the dense family's population rounds
@@ -100,6 +137,16 @@ def _cfgs(case, dtype="float32"):
     arch, kw = CASES[case]
     return (ref_reduced(ref_arch(arch), dtype=dtype, **kw),
             reduced(get_arch(arch), dtype=dtype, **kw))
+
+
+def frames_in_f32(cfg, batch):
+    """``batch`` (numpy or JAX leaves) with its ``*enc_embeds`` leaves
+    widened to f32 (exact) where ``cfg`` is an f32 encdec model; else as
+    it is."""
+    if cfg.family != "encdec" or cfg.dtype != "float32":
+        return batch
+    return {k: (np.asarray(v, np.float32) if k.endswith("enc_embeds")
+                else v) for k, v in batch.items()}
 
 
 def _ctxs(chunk=CHUNK):
@@ -146,7 +193,8 @@ def ssd_mask_first(xh, Bc, Cc, dtc, A, h0, chunk):
 def problem_inputs(case):
     """f32 params (away from the zero-init biases) and the ``f``/``g``
     batches of 2 sequences of L.SEQ, as numpy, with n_prefix_embeds
-    prefix embeddings a sequence where the arch takes them."""
+    prefix embeddings a sequence where the arch takes them, and L.SEQ
+    frames of encoder embeddings a sequence for an encdec arch."""
     ref_cfg, cfg = _cfgs(case)
     params = ref_init(ref_specs(ref_cfg), jax.random.PRNGKey(1), "float32")
     params = jax.tree.map(lambda a: a + (0.05 * jax.random.normal(
@@ -159,6 +207,9 @@ def problem_inputs(case):
         if cfg.n_prefix_embeds:
             b["prefix_embeds"] = rng.standard_normal(
                 (2, cfg.n_prefix_embeds, cfg.d_model)).astype(np.float32)
+        if cfg.family == "encdec":
+            b["enc_embeds"] = rng.standard_normal(
+                (2, L.SEQ, cfg.d_model)).astype(np.float32)
         return b
     return params, {"f": batch(), "g": batch()}
 
@@ -255,8 +306,9 @@ def batches(case):
     specs, _ = ref_rt.client_batch_specs(ref_tr.cfg, ref_tr.shape, 1,
                                          ref_tr.fed)
     data = RefData(vocab=ref_tr.cfg.vocab, n_clients=1)
-    return [jax.tree.map(np.asarray, ref_batch(data, ref_tr.cfg, specs, t))
-            for t in range(L.STEPS)]
+    return [frames_in_f32(ref_tr.cfg, jax.tree.map(
+        np.asarray, ref_batch(data, ref_tr.cfg, specs, t)))
+        for t in range(L.STEPS)]
 
 
 def init(case, seed=L.SEED, chunk=CHUNK, witness=False):
@@ -291,22 +343,25 @@ def step_and_sync(case, ref, port, draws, seed, chunk=CHUNK,
 
 def test_trainer_init_step_and_sync_match_reference(case):
     """At SEED every depth is 0: the init, a local step and a sync at
-    TRAIN_REL normwise (readings below 3.4e-6)."""
+    TRAIN_REL normwise (readings below 3.4e-6; whisper-tiny's stages at
+    ENCDEC_STAGE_REL)."""
     (rs, rv), (ps, pv), draws = init(case)
+    rel = stage_rel(case)
     L.assert_rel(ps, rs, L.TRAIN_REL, "init states")
     L.assert_server(pv, rv, "init server")
     for what, ((rs, rv), (ps, pv)) in zip(
             ("local step", "sync"),
             step_and_sync(case, (rs, rv), (ps, pv), draws, L.SEED)):
-        L.assert_states(ps, rs, what)
-        L.assert_server(pv, rv, f"server after the {what}")
+        L.assert_states(ps, rs, what, rel, rel)
+        L.assert_server(pv, rv, f"server after the {what}", rel)
 
 
 def test_trainer_eager_run_scan_rounds_and_eval(case):
     """The eager loop (4 steps, a sync before step 2): stage by stage, the
-    port from the reference's state before each stage, at TRAIN_REL; free
-    running at EAGER_REL; eval of the reference's final state at 1e-5.
-    Then the port's scan rounds from the init, each equal bit for bit to
+    port from the reference's state before each stage, at TRAIN_REL
+    (whisper-tiny's at ENCDEC_STAGE_REL); free running at EAGER_REL
+    (whisper-tiny's at ENCDEC_EAGER_REL); eval of the reference's final
+    state at 1e-5. Then the port's scan rounds from the init, each equal bit for bit to
     its eager calls (q local steps and the sync)."""
     _, tr = trainers(case)
     fns = ref_fns(case)
@@ -324,14 +379,16 @@ def test_trainer_eager_run_scan_rounds_and_eval(case):
                           to_torch(batches(case)[t]), draws.steps[t])
             rs, rv = fns["local"](rs, rv, jax.tree.map(
                 jnp.asarray, batches(case)[t]), L.KEY)
-        L.assert_states(got[0], rs, f"{kind} {t}")
-        L.assert_server(got[1], rv, f"server after {kind} {t}")
+        L.assert_states(got[0], rs, f"{kind} {t}", stage_rel(case),
+                        stage_rel(case))
+        L.assert_server(got[1], rv, f"server after {kind} {t}",
+                        stage_rel(case))
         return states, server
     ps, pv = L._eager(lambda s, v, b, k: p_local(s, v, to_torch(b), k),
                       p_sync, ps0, pv0, batches(case), draws.steps,
                       after=staged)
-    L.assert_rel(ps, rs, EAGER_REL, "eager run")
-    L.assert_server(pv, rv, "eager run server", EAGER_REL)
+    L.assert_rel(ps, rs, eager_rel(case), "eager run")
+    L.assert_server(pv, rv, "eager run server", eager_rel(case))
     b = batches(case)[-1]
     want = float(fns["eval"](rs, jax.tree.map(jnp.asarray, b)))
     np.testing.assert_allclose(float(tr.eval_fn()(to_torch(rs), to_torch(b))),
@@ -364,13 +421,14 @@ def test_population_round_matches_reference(family_case):
     one = ref_rt.client_batch_specs(ref_tr.cfg, ref_tr.shape, 1,
                                     ref_tr.fed)[0]
     key = jax.random.PRNGKey(L.SEED)
-    inits = [ref_fns(case)["init"](jax.random.fold_in(key, i), ref_cohort(
-        data, ref_tr.cfg, one, 0, [i])) for i in range(N)]
+    inits = [ref_fns(case)["init"](jax.random.fold_in(key, i), frames_in_f32(
+        ref_tr.cfg, ref_cohort(data, ref_tr.cfg, one, 0, [i])))
+        for i in range(N)]
     bank = jax.tree.map(lambda *a: jnp.concatenate(a), *[s for s, _ in inits])
     server, last = inits[0][1], jnp.zeros((N,), jnp.int32)
-    cohort_b = ref_stack([ref_cohort(data, ref_tr.cfg, specs_c, j,
-                                     np.asarray(COHORT))
-                          for j in range(L.Q)])
+    cohort_b = ref_stack([frames_in_f32(ref_tr.cfg, ref_cohort(
+        data, ref_tr.cfg, specs_c, j, np.asarray(COHORT)))
+        for j in range(L.Q)])
     want = jax.jit(ref_tr.population_round_fn(N))(
         bank, last, server, jnp.asarray(COHORT), cohort_b, key,
         jnp.int32(0))

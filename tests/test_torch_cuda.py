@@ -345,6 +345,39 @@ def test_flash_attention_matches_plain_version(cuda, b, h, kv, s, d, causal,
                                              window=window), dtype)
 
 
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,strided", [
+    (1, 6, 6, 77, 300, 64, True),        # a prompt over fewer frames
+    (1, 6, 6, 224, 2048, 64, True),      # whisper's cross-attention
+    (1, 6, 6, 77, 1500, 64, True),       # whisper's 1500 frames (ragged)
+    (2, 6, 6, 2048, 2048, 64, False),    # whisper's encoder
+    (1, 8, 2, 130, 40, 128, True),       # more queries than keys, GQA
+])
+def test_flash_attention_not_causal_at_sq_not_sk(cuda, b, h, kv, sq, sk, d,
+                                                 strided):
+    """The encdec prefill's attentions in bf16 on the tensor-core kernel:
+    not causal, the queries' length other than the keys' (the
+    cross-attention: the prompt over the encoder's frames; the encoder
+    itself at Sq = Sk), in the prefill's [B, S, H, D] layout viewed as
+    [B, H, S, D] (``strided``) or contiguous."""
+    from repro_torch.kernels import flash_attention as fkern
+    g = torch.Generator(device=cuda)
+    g.manual_seed(sq * 7 + sk)
+
+    def make(heads, s):
+        if strided:
+            return torch.randn(b, s, heads, d, generator=g, device=cuda,
+                               dtype=torch.bfloat16).transpose(1, 2)
+        return torch.randn(b, heads, s, d, generator=g, device=cuda,
+                           dtype=torch.bfloat16)
+    q, k, v = make(h, sq), make(kv, sk), make(kv, sk)
+    before = fkern.launches["flash_attention"]
+    got = fkern.flash_attention(q, k, v, causal=False)
+    assert fkern.launches["flash_attention"] == before + 1
+    assert got.shape == q.shape and got.stride() == q.stride()
+    _attn_close(got, ref.flash_attention_ref(q, k, v, causal=False),
+                torch.bfloat16)
+
+
 @pytest.mark.parametrize("b,h,kv,w,d,pos,dtype,offset", [
     (3, 8, 2, 200, 128, (1, 200, 77), torch.bfloat16, 0),   # [B] pos, ragged W
     (2, 12, 1, 64, 128, (64, 5), torch.bfloat16, 0),        # MQA
@@ -361,6 +394,10 @@ def test_flash_attention_matches_plain_version(cuda, b, h, kv, s, d, causal,
     (8, 40, 8, 2048, 128, (2048,) * 8, torch.bfloat16, 0),  # pos = W
     (4, 32, 4, 1000, 64, (1000, 3, 640, 999), torch.float32, 0),  # g 8
     (4, 32, 4, 1000, 64, (1000, 3, 640, 999), torch.bfloat16, 0),
+    # whisper-tiny's decoder: 6 heads over 6 (a group of 1) at Dh 64
+    (8, 6, 6, 2048, 64, (1, 2048, 1000, 1536, 37, 2047, 512, 1300),
+     torch.bfloat16, 0),
+    (3, 6, 6, 448, 64, (4, 448, 229), torch.float32, 0),
 ])
 def test_quant_decode_matches_plain_version(cuda, b, h, kv, w, d, pos, dtype,
                                             offset):
@@ -600,3 +637,47 @@ def test_engine_on_the_card_serves_ssm_and_hybrid(cuda, arch_id):
     want = Engine(cfg, params, slots=3, max_len=96, kv_kernel="xla").run(
         reqs)
     assert got == {c.rid: c.tokens for c in want}
+
+
+def test_engine_on_the_card_serves_encdec(cuda):
+    """Reduced whisper-tiny (f32) served on the card with the int8 pool:
+    flash_attention once a layer of the encoder and twice a decoder layer
+    (self- and cross-attention) an admission, the int8 decode once a
+    decoder layer a tick; the same tokens as the engine on the CPU (the
+    kernels' plain versions), and the pool's cross cache equal to the
+    CPU's within the attention tolerance after the first admission and
+    tick."""
+    from repro_torch import device as devlib
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core.tree_util import tree_map
+    from repro_torch.kernels import flash_attention as fkern
+    from repro_torch.kernels import quant_decode as qd
+    from repro_torch.models import init_params, model_specs
+    from repro_torch.serve import Engine, LoadSpec, generate_requests
+    cfg = reduced(get_arch("whisper-tiny"), dtype="float32")
+    params = init_params(model_specs(cfg), devlib.generator("cpu", 0),
+                         "float32")
+    reqs = generate_requests(LoadSpec(n_requests=5, prompt_lens=(4, 30),
+                                      mean_new_tokens=4.0, max_new_cap=6,
+                                      seed=3), cfg.vocab,
+                             enc_shape=(96, cfg.d_model))
+    engines = {dev: Engine(cfg, tree_map(lambda t: t.to(dev), params),
+                           slots=3, max_len=96, kv_quant=True, device=dev)
+               for dev in ("cpu", "cuda")}
+    fkern.reset_launches()
+    qd.reset_launches()
+    for eng in engines.values():
+        eng.submit(reqs[0])
+        eng.step()
+    pool = {d: e._pool for d, e in engines.items()}
+    for key in ("ck", "cv"):
+        _attn_close(pool["cuda"][key].float().cpu(),
+                    pool["cpu"][key].float(), torch.bfloat16)
+    got = {d: {c.rid: c.tokens for c in e.run(reqs[1:])}
+           for d, e in engines.items()}
+    assert got["cuda"] == got["cpu"]
+    card = engines["cuda"]
+    assert (fkern.launches["flash_attention"]
+            == (cfg.encoder.n_layers + 2 * cfg.n_layers) * len(reqs))
+    assert (qd.launches["quant_decode_attention"]
+            == cfg.n_layers * len(card.timings["decode"]))

@@ -2,7 +2,9 @@
 on the CPU, at ``lm_family``'s cases: ``reduced(falcon-mamba-7b)``
 (mamba1), ``reduced(zamba2-1.2b)`` (2 mamba2 layers, the shared block
 after them) and ``reduced(zamba2-1.2b, n_layers=3)`` (a segment, then a
-tail layer with no shared block after it). Every case runs the chunked
+tail layer with no shared block after it); the attention families' cases
+too (whisper-tiny's batches with the encoder's frames in the model's
+dtype, widened with the params for the f32 witness). Every case runs the chunked
 scans at ``ModelCtx(kind="train", ssm_chunk=CHUNK)`` on both sides, so that
 each sequence spans two chunks or more and the state carried between
 chunks is differentiated.
@@ -17,7 +19,9 @@ chunks is differentiated.
   ``test_torch_lm_hybrid_tail.py``).
 - Per-layer rematerialisation (``models/remat.py``): the training forward's
   values and every derivative the hypergradient takes, bit for bit against
-  the layers called directly, on the dense, ssm and hybrid families.
+  the layers called directly, on the dense, ssm, hybrid and encdec
+  families (the encdec decoder layers take their cross-attention's K and
+  V, projected from the encoder's output, as inputs).
 
 The trainer's cases are in ``test_torch_lm_ssm_train.py`` (ssm),
 ``test_torch_lm_hybrid_train.py`` and ``test_torch_lm_hybrid_tail.py``
@@ -101,6 +105,12 @@ def _problem_inputs(case, dtype):
                "g": {"tokens": toks(2, L.SEQ)},
                "g0": {"tokens": toks(1, 64)},
                "gi": {"tokens": toks(L.K, 1, 64)}}
+    if cfg.family == "encdec":
+        # frames as many as tokens, in the model's dtype
+        for b in batches.values():
+            b["enc_embeds"] = np.asarray(jnp.asarray(rng.standard_normal(
+                b["tokens"].shape + (cfg.d_model,)).astype(
+                    np.float32)).astype(dtype))
     return params, batches
 
 
@@ -128,6 +138,9 @@ def _results(case, dtype, microbatch, widened=False):
     rp, pp = _problems(case, dtype, microbatch)
     if widened:
         params = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), params)
+        batches = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32)
+                               if a.dtype.kind == "V" or a.dtype.itemsize
+                               == 2 else a, batches)
     want = jax.jit(lambda x, y, b: _problem_results(rp, x, y, b))(
         params["x"], params["y"], jax.tree.map(jnp.asarray, batches))
     if widened:
@@ -315,7 +328,8 @@ def test_ssd_repair_keeps_the_forward_where_nothing_overflows(chunk):
 
 REMAT_ARCHS = {"dense": ("qwen1.5-4b", {}),
                "ssm": ("falcon-mamba-7b", {}),
-               "hybrid": ("zamba2-1.2b", {"n_layers": 3})}
+               "hybrid": ("zamba2-1.2b", {"n_layers": 3}),
+               "encdec": ("whisper-tiny", {})}
 
 
 def _remat_results(cfg, params, batches, ctx):
@@ -349,9 +363,10 @@ def _remat_results(cfg, params, batches, ctx):
 def test_remat_equals_the_direct_layers_bit_for_bit(family, monkeypatch):
     """The training forward through ``remat_layer`` against the same
     layers called directly (``remat_layer`` replaced by a plain call):
-    every result bit for bit, and finite. One remat'd call a layer, and
-    none for the hybrid's shared block (its attention weights never reach
-    ``remat_layer``), as the reference's ``_hybrid_seq``."""
+    every result bit for bit, and finite. One remat'd call a layer, the
+    encdec encoder's included, and none for the hybrid's shared block (its
+    attention weights never reach ``remat_layer``), as the reference's
+    ``_hybrid_seq``."""
     arch, kw = REMAT_ARCHS[family]
     cfg = reduced(get_arch(arch), dtype="float32", **kw)
     gen = torch.Generator().manual_seed(0)
@@ -360,6 +375,19 @@ def test_remat_equals_the_direct_layers_bit_for_bit(family, monkeypatch):
                                              generator=gen)},
                "gi": {"tokens": torch.randint(0, cfg.vocab, (2, 1, 32),
                                               generator=gen)}}
+    want = [sorted(params["x"]["layers"])] * cfg.n_layers
+    if cfg.family == "encdec":
+        for b in batches.values():
+            b["enc_embeds"] = torch.randn(b["tokens"].shape + (
+                cfg.d_model,), generator=gen)
+        # the encoder's layers, then the decoder's with their
+        # cross-attention's K and V among their inputs in place of the
+        # leaves that project them
+        want = ([sorted(params["x"]["encoder"]["layers"])]
+                * cfg.encoder.n_layers
+                + [sorted([n for n in params["x"]["layers"]
+                           if n not in model.CROSS_KV_LEAVES]
+                          + list(model.CROSS_KV))] * cfg.n_layers)
     ctx = ModelCtx(kind="train", ssm_chunk=CHUNK)
     seen = []
     real = model.remat_layer
@@ -369,8 +397,7 @@ def test_remat_equals_the_direct_layers_bit_for_bit(family, monkeypatch):
         return real(body, h, p)
     monkeypatch.setattr(model, "remat_layer", counted)
     model.features(cfg, params["x"], batches["f"], ctx)
-    assert len(seen) == cfg.n_layers
-    assert all(keys == sorted(params["x"]["layers"]) for keys in seen)
+    assert seen == want
     remat = _remat_results(cfg, params, batches, ctx)
     monkeypatch.setattr(model, "remat_layer", lambda body, h, p: body(h, p))
     direct = _remat_results(cfg, params, batches, ctx)

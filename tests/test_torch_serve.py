@@ -33,6 +33,7 @@ import jax  # noqa: E402  (after the harness: it shims jax first)
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_arch as ref_get_arch  # noqa: E402
+from repro.configs import list_arch_ids as ref_list_arch_ids  # noqa: E402
 from repro.configs import reduced as ref_reduced  # noqa: E402
 from repro.kernels import ref as ref_ref  # noqa: E402
 from repro.kernels.quant_decode import (  # noqa: E402
@@ -110,12 +111,17 @@ def test_configs_match_reference_field_for_field(arch_id):
                                                   **kw)))
 
 
-def test_other_families_raise_naming_their_slice():
-    cfg = dataclasses.replace(get_arch("qwen1.5-4b"), family="encdec")
-    with pytest.raises(NotImplementedError, match="1c"):
+def test_every_reference_arch_and_family_is_ported():
+    """The registry is the reference's, in its order; every family of its
+    architectures is one the model runs; an unknown family raises."""
+    assert list_arch_ids() == ref_list_arch_ids()
+    for arch_id in ref_list_arch_ids():
+        assert ref_get_arch(arch_id).family in model.PORTED_FAMILIES
+    cfg = dataclasses.replace(get_arch("qwen1.5-4b"), family="rnn")
+    with pytest.raises(ValueError, match="unknown family 'rnn'"):
         model.model_specs(cfg)
-    with pytest.raises(KeyError, match="later slice"):
-        get_arch("whisper-tiny")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch("whisper-base")
 
 
 # ------------------------------------------------------------ weights
