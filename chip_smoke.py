@@ -75,8 +75,8 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
    version and the bound. These are rows 1-2 of the kernels line, the
    packed entry's MNIST-shape numbers beside them (``packed_*``);
 11. lm-train-qwen1.5-4b: ``FederatedTrainer`` on qwen1.5-4b at full width
-   and depth (3.56 B x and 0.39 B y parameters, bf16 from a seed, one
-   client), launch/train.py's FedConfig (q 4, K 2), LL batch 8 x 1024, UL
+   and LM_TRAIN_LAYERS of its 40 layers (full depth until PR 23; 2.29 B x
+   and 0.39 B y parameters, bf16 from a seed, one client), launch/train.py's FedConfig (q 4, K 2), LL batch 8 x 1024, UL
    1 x 1024, zeta_0 and Neumann batches 1 x 256: eager 8 steps and scan 2
    rounds from the same init, batches and draws; asserts the exact launch
    counts (storm 2 a local step, adafbio 1 a local step and 1 a sync), one
@@ -85,10 +85,10 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
    peak memory and the update kernels' ms inside a step. Every layer of
    the training forward runs under remat (``models/remat.py``), as the
    reference's under ``jax.checkpoint``;
-11b. lm-train-zamba2-1.2b (38 mamba2 layers and the shared block, full
-   width and depth) and lm-train-falcon-mamba-7b (full width, the depth
-   by the cut rule: 32 layers, or 16 where the peak passes LM_PEAK_GB or
-   the card runs out of memory; FALCON_STEPS steps, one scan round): the
+11b. lm-train-zamba2-1.2b (full width, 10 of its 38 mamba2 layers and
+   the shared block) and lm-train-falcon-mamba-7b (full width, 8 of its
+   64 layers; FALCON_STEPS steps, one scan round; both depths cut for the
+   script's time limit since PR 23): the
    shape and checks of item 11 at LM_FAMILY_FED (item 11's FedConfig at
    rho 1e-2 and theta 0.1: at item 11's own both families diverge
    within a round), every state leaf finite after every step, sync and
@@ -102,7 +102,8 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
    card (scan, 8 steps, a checkpoint in 2 shards), ``--resume`` for one
    more round, then the serve CLI on 4 requests from the checkpoint: the
    bridge's params equal the saved client mean and every request is served
-   once;
+   once; then the population CLI (N 4, C 2, 2 shards) dense and with
+   ``--spill host``, whose checkpoint files must be equal bit for bit;
 12b. the LM rounds (``LM_ROUND_PHASES``): ``FederatedTrainer``'s
    population, async and gossip builders on qwen1.5-4b at full width,
    the depth cut to what one card holds, the launcher's FedConfig, seq
@@ -119,6 +120,23 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
    codec's leaf route against the packed route bit for bit at full width
    (the embedding, a layer, the final norm) with the quantize pair timed
    at the embedding leaf [1, 388_956_160]: rows 3-4 of the kernels line;
+12c. the host-spill bank (ROADMAP 2c), right after the LM rounds:
+   lm-population-spill-int8-qwen1.5-4b, lm-population-int8's spec, seed
+   and cut spilled (the bank and the EF bank in pinned host memory, the
+   rows built one client at a time, the cohort round, the host
+   write-back, the next cohort prefetched on a side stream): the bank, EF
+   bank, last_sync and server equal the dense phase's bit for bit (the
+   dense phase keeps them on the host), its device peak no higher; then
+   lm-population-spill-qwen1.5-4b: qwen1.5-4b at full width and depth
+   (40 layers), codec none, C 1, 2 rounds, N 4 or, where 5 rows' pinned
+   bytes pass half the host's MemTotal, 2 (printed with the reason),
+   under SPILL_CUTS; exact launches, every row of the bank after the last
+   round equal to the sync's state leaf by leaf on the host, last_sync, finite leaves, the
+   wire bytes; then one round at the other N (SPILL_OTHER_N) with the
+   same cut, its device peak within 1 GiB of the first run's; prints ms a
+   round by part (gather, round program, broadcast, prefetch), the H2D
+   and D2H rates, whether the prefetch freed the next gather, the pinned
+   bytes and the peak beside the dense bank's device bytes;
 13. flash phase: the prefill's attention kernel against its plain version
    (f32 math) in the prefill's [B, S, H, D] layout: the full-width prefill
    (qwen2.5-14b: 40 heads over 8, head_dim 128, S 1536, bf16, causal), MHA
@@ -440,18 +458,24 @@ GOSSIP_ROUNDS = 4
 
 
 # The LM slice (lm_train_phase): the trainer on qwen1.5-4b at full width
-# and depth, with launch/train.py's FedConfig and one client; per step an
-# LL batch of 8 x 1024 tokens, a UL batch of 1 x 1024, zeta_0 and K = 2
-# Neumann batches of 1 x 256, microbatch 1
+# and LM_TRAIN_LAYERS of its 40 layers, with launch/train.py's FedConfig
+# and one client; per step an LL batch of 8 x 1024 tokens, a UL batch of
+# 1 x 1024, zeta_0 and K = 2 Neumann batches of 1 x 256, microbatch 1.
+# It ran all 40 layers until the host-spill phase (PR 23) took over full
+# depth (lm_spill_phase: qwen1.5-4b's local steps at 40 layers), and the
+# script's time limit wanted the ~40 s back.
 LM_ARCH = "qwen1.5-4b"
+LM_TRAIN_LAYERS = 24
 LM_SEQ, LM_BATCH = 1024, 8
 LM_FED = dict(q=4, neumann_k=2, lr_x=1e-2, lr_y=1e-1)
 LM_STEPS = 8                   # eager 8 steps; scan 2 rounds of q = 4
 # The ssm and hybrid families' trainers (lm_family_phase), at their full
-# width with LM_FAMILY_FED and LM_SEQ x LM_BATCH: zamba2-1.2b at full depth
-# (38 layers) for LM_STEPS; falcon-mamba-7b at the first depth of
-# FALCON_DEPTHS that one card holds, for FALCON_STEPS (one scan round of
-# q 4; its step takes ~12 s, so the phase takes about 2 minutes).
+# width with LM_FAMILY_FED and LM_SEQ x LM_BATCH: zamba2-1.2b at
+# HYBRID_DEPTHS (10 of its 38 layers) for LM_STEPS; falcon-mamba-7b at the
+# first depth of FALCON_DEPTHS that one card holds, for FALCON_STEPS (one
+# scan round of q 4). Both depths were cut (zamba2 from 38, falcon from
+# 32) when the host-spill phases came, to keep the script inside its
+# time limit: zamba2 took ~8.5 s a step and falcon ~12 s at those depths.
 # LM_FAMILY_FED is LM_FED at rho 1e-2 and theta 0.1. At LM_FED both
 # families diverge within a round (PERF.md, section 6): the Neumann step
 # theta 1 exceeds 1/L_g, so the first depth-1 step multiplies
@@ -465,7 +489,8 @@ LM_STEPS = 8                   # eager 8 steps; scan 2 rounds of q = 4
 # the same reason (CHECK_THETA, HC_THETA), and the tests hold free runs at
 # rho 1e-2 (tests/test_torch_lm_train.py: RHO).
 LM_FAMILY_FED = dict(LM_FED, rho=1e-2, theta=0.1)
-FALCON_DEPTHS = (32, 16)
+HYBRID_DEPTHS = (10,)
+FALCON_DEPTHS = (8,)
 FALCON_STEPS = 4
 # The MoE and vlm slice's trainers (moe_vlm_phases): arch and depths under
 # the same cut rule, FALCON_STEPS steps and one round at LM_FAMILY_FED. At
@@ -517,6 +542,19 @@ LM_ROUND_PHASES = [
      dict(mode="gossip", n=4, c=4, layers=2, codec="none")),
     ("lm-population-int8-qwen1.5-4b",
      dict(mode="population", n=2, c=1, layers=4, codec="int8"))]
+# The host-spill phases (lm_spill_phase, ROADMAP 2c): qwen1.5-4b's
+# population at full width and depth with the bank in pinned host memory,
+# at the LM rounds' FedConfig and shape: N SPILL_N, or SPILL_SMALL_N where
+# SPILL_N + 1 rows (the bank and the broadcast's base) pin more than half
+# the host's memory; C SPILL_C, codec none; then one round at
+# SPILL_OTHER_N[N] with the same cut, its device peak within
+# SPILL_PEAK_SAME_GIB of the first run's. Cut rule: where the peak passes
+# LM_PEAK_GB, seq 256, then 32, then 24 layers.
+SPILL_N, SPILL_SMALL_N, SPILL_C = 4, 2, 1
+SPILL_CUTS = ((LM_ROUND_SEQ, 40), (LM_ROUND_SEQ // 2, 40),
+              (LM_ROUND_SEQ // 2, 32), (LM_ROUND_SEQ // 2, 24))
+SPILL_OTHER_N = {4: 2, 2: 1}
+SPILL_PEAK_SAME_GIB = 1.0
 # the same rounds at reduced qwen1.5-4b, card against CPU: the tolerances
 # the CPU tests hold the port to against the reference at K = 1
 # (tests/test_torch_lm_population.py, _async.py, _gossip.py)
@@ -3081,7 +3119,10 @@ def train_ckpt_serve_phase(torch, kerns):
     card (scan, 8 steps, q 4, a checkpoint in 2 shards), --resume for one
     more round, then the serve CLI serving 4 requests from the checkpoint:
     the bridge's params must equal the client mean of the saved state, and
-    every request must be served once. Returns the training launches."""
+    every request must be served once; then the population CLI (N 4, C 2,
+    8 steps, 2 shards) dense and with ``--spill host``: the same
+    checkpoint files, bit for bit, and the same wire bytes. Returns the
+    training launches."""
     import shutil
     from repro_torch.configs import get_arch, reduced
     from repro_torch.core.tree_util import tree_leaves, tree_mean_axis0
@@ -3113,10 +3154,28 @@ def train_ckpt_serve_phase(torch, kerns):
                            str(path), "--requests", "4", "--max-len", "64",
                            "--prompt-lens", "8,16,32"])
     rids = sorted(c.rid for c in done)
+    # the population CLI, dense and with --spill host: the same files
+    pop = ["--arch", LM_ARCH, "--reduced", "--steps", "8", "--q", "4",
+           "--population", "4", "--cohort", "2", "--ckpt-shards", "2"]
+    reset_launches(kerns)
+    dense = train_cli.main(pop + ["--ckpt", str(ckdir / "pop_dense")])
+    spilled = train_cli.main(pop + ["--spill", "host", "--ckpt",
+                                    str(ckdir / "pop_spill")])
+    pop_counts = launch_counts(kerns)
+    check_counts("train-ckpt-serve population", pop_counts, {
+        "storm_update": 2 * 2 * 8, "adafbio_update": 2 * (8 + 2),
+        "quantize_stoch": 0, "dequantize": 0})
+    add_counts(counts, pop_counts)
+    pinned = all(t.is_pinned() for t in tree_leaves(spilled["spill"].rows))
+    files = same_checkpoint_files(ckdir / "pop_dense", ckdir / "pop_spill")
     print(f"train-ckpt-serve: trained to step {second['step']} (resumed at "
           f"8), bridge layout {info['layout']} step {info['step']}, params "
           f"equal to the saved client mean {same}; served "
-          f"{len(done)} requests {rids}", flush=True)
+          f"{len(done)} requests {rids}; the population CLI (N 4, C 2, 2 "
+          f"shards) dense and --spill host (bank pinned {pinned}): "
+          f"{len(files)} files {files} equal bit for bit, wire "
+          f"{dense['bytes_up']}/{dense['bytes_down']} and "
+          f"{spilled['bytes_up']}/{spilled['bytes_down']}", flush=True)
     shutil.rmtree(ckdir, ignore_errors=True)
     if not same or info["step"] != 12:
         raise AssertionError("train-ckpt-serve: the bridge's params are not "
@@ -3124,7 +3183,37 @@ def train_ckpt_serve_phase(torch, kerns):
     if rids != list(range(4)):
         raise AssertionError(f"train-ckpt-serve: served {rids}, want each "
                              f"of 4 requests once")
+    if not pinned or (dense["bytes_up"], dense["bytes_down"]) != (
+            spilled["bytes_up"], spilled["bytes_down"]):
+        raise AssertionError("train-ckpt-serve: the spilled bank is not "
+                             "pinned, or its wire bytes differ")
     return counts
+
+
+def same_checkpoint_files(a, b):
+    """The files of two checkpoints (``<path>.json``, ``.npz`` and
+    ``.shard{k}.npz``) hold the same sidecar and the same arrays, name,
+    dtype and bits; returns the suffixes compared (raises on a
+    difference)."""
+    import numpy as np
+    suffixes = sorted(p.name[len(a.name):] for p in a.parent.glob(
+        a.name + ".*"))
+    other = sorted(p.name[len(b.name):] for p in b.parent.glob(
+        b.name + ".*"))
+    if suffixes != other or ".json" not in suffixes:
+        raise AssertionError(f"checkpoint files {suffixes} against {other}")
+    for suf in suffixes:
+        fa, fb = Path(f"{a}{suf}"), Path(f"{b}{suf}")
+        if suf == ".json":
+            if json.loads(fa.read_text()) != json.loads(fb.read_text()):
+                raise AssertionError(f"checkpoint sidecars differ: {suf}")
+            continue
+        za, zb = np.load(fa), np.load(fb)
+        if sorted(za.files) != sorted(zb.files) or any(
+                za[k].dtype != zb[k].dtype or not np.array_equal(za[k], zb[k])
+                for k in za.files):
+            raise AssertionError(f"checkpoint arrays differ in {suf}")
+    return suffixes
 
 
 # ------------------------------------------------------------ LM rounds
@@ -3323,7 +3412,8 @@ def lm_rounds(torch, kerns, cfg, mode, n, c, seq, codec="none",
     peak = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" \
         else float("nan")
     final = (state if mode == "async" else
-             {"bank": bank, "ef": ef, **({"server": server}
+             {"bank": bank, "ef": ef, **({"server": server,
+                                          "last_sync": last_sync}
                                          if mode == "population" else
                                          {"srv_bank": srv_bank})})
     leaves = tree_leaves(final["bank"])
@@ -3345,17 +3435,21 @@ def lm_rounds(torch, kerns, cfg, mode, n, c, seq, codec="none",
            and not bool(torch.isfinite(t).all())]
     if bad:
         raise AssertionError(f"lm {mode}: non-finite leaves {bad}")
-    # the bytes against the pricing's own formula, leaf by leaf
-    sizes = [math.prod(t.shape[1:]) for t in leaves]
-    want_msg = (sum(s + 4 for s in sizes) if codec == "int8" else
-                sum(math.prod(t.shape[1:]) * t.element_size()
-                    for t in leaves))
-    if msg_b != want_msg:
-        raise AssertionError(f"lm {mode}: wire_costs {msg_b}, the formula "
-                             f"{want_msg}")
+    check_wire(f"lm {mode}", leaves, codec, msg_b)
     return dict(final=final, counts=counts, ms=ms, peak_gb=peak,
                 bytes=(bytes_up, bytes_down), msg_b=msg_b, down_b=down_b,
                 hist=hist, busy=busy, n_leaves=n_leaves)
+
+
+def check_wire(what, leaves, codec, msg_b):
+    """The uplink message's bytes against the pricing's own formula, leaf
+    by leaf over the bank's [N, ...] leaves (codec none or int8)."""
+    sizes = [math.prod(t.shape[1:]) for t in leaves]
+    want = (sum(s + 4 for s in sizes) if codec == "int8" else
+            sum(math.prod(t.shape[1:]) * t.element_size() for t in leaves))
+    if msg_b != want:
+        raise AssertionError(f"{what}: wire_costs {msg_b}, the formula "
+                             f"{want}")
 
 
 def lm_depth_cfg(layers):
@@ -3363,11 +3457,13 @@ def lm_depth_cfg(layers):
     return dataclasses.replace(get_arch(LM_ARCH), n_layers=layers)
 
 
-def lm_rounds_phase(torch, kerns, name, spec):
+def lm_rounds_phase(torch, kerns, name, spec, keep=False):
     """One of the LM rounds phases at qwen1.5-4b's full width, under the
     cut rule: at seq 512 first; where the peak passes LM_PEAK_GB (or the
     card runs out of memory), seq 256, then 2 layers. Prints the round
-    times, the peak and the cut; returns the launch counts."""
+    times, the peak and the cut; returns the launch counts and the cut
+    (with ``keep``, the final state too, copied to the host leaf by
+    leaf)."""
     mode, n, c, layers, codec = (spec[k] for k in ("mode", "n", "c",
                                                    "layers", "codec"))
     rounds, seed = spec.get("rounds", LM_ROUNDS), spec.get("seed", 0)
@@ -3408,9 +3504,324 @@ def lm_rounds_phase(torch, kerns, name, spec):
           f"bytes_down={down} (message {out['msg_b']} B, downlink "
           f"{out['down_b']} B){extra}", flush=True)
     counts = out["counts"]
+    run = dict(seq=seq, layers=depth, cut=tried, peak_gb=out["peak_gb"])
+    if keep:
+        run["final"] = to_host(torch, out["final"])
     del out
     free_device_memory(torch)
-    return counts, dict(seq=seq, layers=depth, cut=tried)
+    return counts, run
+
+
+# ------------------------------------------------------------ host spill
+
+def host_mem_total():
+    """The host's MemTotal in bytes (``/proc/meminfo``)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemTotal:"):
+                return int(line.split()[1]) * 1024
+    raise AssertionError("no MemTotal in /proc/meminfo")
+
+
+def spill_row_bytes(cfg):
+    """One client row's bytes (x, y, v and w at the arch's dtype)."""
+    from repro_torch.configs import FedConfig, ShapeConfig
+    from repro_torch.core.tree_util import tree_leaves
+    from repro_torch.fed.runtime import FederatedTrainer
+    tr = FederatedTrainer(cfg, FedConfig(**LM_FED), ShapeConfig(
+        "cli", LM_ROUND_SEQ, LM_ROUND_BATCH, "train"), device="cuda")
+    return sum(math.prod(s.shape) * s.dtype.itemsize
+               for s in tree_leaves(tr.abstract_population_states(1)))
+
+
+def check_rows_equal(torch, bank, want, what):
+    """Every row of the bank's dense view equal, leaf by leaf on the host,
+    to the client state ``want`` (on the card) bit for bit."""
+    got = dict(named_leaves(bank.lazy_leaves()))
+    for name, leaf in named_leaves(want):
+        rows, w = got.pop(name).fetch(0, bank.n), leaf.cpu()
+        for i in range(bank.n):
+            if not torch.equal(rows[i], w):
+                raise AssertionError(f"{what}: bank row {i} {name} differs "
+                                     f"from the sync's state")
+        del rows, w
+    if got:
+        raise AssertionError(f"{what}: leaves {sorted(got)} not in the state")
+
+
+def lm_spill_rounds(torch, kerns, cfg, n, c, seq, codec="none",
+                    rounds=LM_ROUNDS, seed=0, batch=LM_ROUND_BATCH):
+    """``rounds`` rounds of the host-spill population on ``cfg``: the
+    trainer's row-by-row init into a pinned ``HostSpillBank``, its
+    ``cohort_round_fn``, the host write-back and the next cohort
+    prefetched, as the launcher's ``run_population_spill`` runs them, with
+    :func:`lm_rounds`' FedConfig, shape and draws (so with its seed a
+    spilled run replays :func:`lm_rounds`' population run). Each round is
+    timed in four parts on the host's clock, each closed by a fence (the
+    gather, the round program, the broadcast with the EF scatter, the
+    prefetch's issue); the progress line's work and the next round's
+    batches run between the prefetch and the gather, as in the launcher.
+    Checks ``last_sync``, the server's counter and finite leaves every
+    round, every row against the sync's state after the last round (the
+    base and the stale rows), then the exact launches and the wire bytes.
+    Returns the banks, the server, the counts, the parts' ms, the
+    transfer rates and the peak."""
+    from repro_torch import device as devlib
+    from repro_torch.configs import FedConfig, ShapeConfig
+    from repro_torch.core.tree_util import tree_leaves, tree_stack
+    from repro_torch.data.synthetic import (FederatedLMData, TorchLMDraws,
+                                            make_client_batch,
+                                            make_cohort_batch)
+    from repro_torch.fed.compress import CodecNoise
+    from repro_torch.fed.runtime import (FederatedTrainer, NeumannDraws,
+                                         client_batch_specs, round_depths)
+    from repro_torch.fed.sampling import UniformSampler
+    from repro_torch.launch.train import PARAM_SALT, wire_costs
+    from repro_torch.models.params import TensorSpec
+
+    dev = torch.device("cuda")
+    fed = FedConfig(**LM_FED, codec=codec, error_feedback=True)
+    q = fed.q
+    tr = FederatedTrainer(cfg, fed, ShapeConfig("cli", seq, batch, "train"),
+                          device=dev)
+    specs_c = client_batch_specs(cfg, tr.shape, c, fed)
+    specs_n = {k: TensorSpec((n,) + tuple(v.shape[1:]), v.dtype)
+               for k, v in specs_c.items()}
+    data = FederatedLMData(vocab=cfg.vocab, n_clients=n,
+                           draws=TorchLMDraws(seed, dev))
+    depths = NeumannDraws(seed, fed.neumann_k, n, dev)
+    noise = CodecNoise(seed, dev)
+    sampler = UniformSampler(n, c, seed)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = tr.init_params(devlib.generator(dev, seed, PARAM_SALT))
+    batch0 = make_client_batch(data, cfg, specs_n, 0, dev)
+    bank, last_sync, server = tr.init_spilled_population_states(
+        params, batch0, depths.init())
+    ef = tr.init_spilled_ef_bank(n)
+    del params, batch0
+    devlib.fence(dev)
+    init_s = time.time() - t0
+    round_fn = tr.cohort_round_fn(n)
+    msg_b, down_b = wire_costs(tr, n)
+    bytes_up = bytes_down = 0
+    parts = []
+    reset_launches(kerns)
+    ids_host = sampler.cohort(0)
+    for r in range(rounds):
+        ids = ids_host.to(dev)
+        batch_q = tree_stack([make_cohort_batch(
+            data, cfg, specs_c, r * q + j, ids_host, dev) for j in range(q)])
+        k_q = round_depths(depths, r, q, ids)
+        u = noise(r, ids) if codec == "int8" else None
+        devlib.fence(dev)
+        ms = {}
+        t0 = time.time()
+        cur = bank.gather(ids_host)
+        ef_c = ef.gather(ids_host) if ef is not None else None
+        ls_c = last_sync.index_select(0, ids_host.long()).to(dev)
+        devlib.fence(dev)
+        ms["gather"] = (time.time() - t0) * 1e3
+        t0 = time.time()
+        if codec == "none":
+            new_client, server = round_fn(cur, ls_c, server, ids, batch_q,
+                                          k_q, r)
+        else:
+            new_client, ef_c, server = round_fn(cur, ls_c, ef_c, server,
+                                                ids, batch_q, k_q, r, u)
+        devlib.fence(dev)
+        ms["round"] = (time.time() - t0) * 1e3
+        t0 = time.time()
+        bank.broadcast(new_client)
+        last_sync.fill_(r + 1)
+        if ef is not None:
+            ef.scatter(ids_host, ef_c)
+        del ef_c
+        ms["broadcast"] = (time.time() - t0) * 1e3
+        del batch_q, cur
+        if r == rounds - 1:          # after the base and the stale rows
+            check_rows_equal(torch, bank, new_client, f"lm spill round {r}")
+        bad = [name for name, t in named_leaves((new_client, server))
+               if t.is_floating_point() and not bool(torch.isfinite(t).all())]
+        if bad:
+            raise AssertionError(f"lm spill round {r}: non-finite {bad}")
+        if (last_sync != r + 1).any() or int(server["t"]) != (q + 1) * (
+                r + 1):
+            raise AssertionError(f"lm spill round {r}: last_sync "
+                                 f"{last_sync.tolist()}, t "
+                                 f"{int(server['t'])}")
+        del new_client
+        ms["prefetch"] = 0.0
+        if r + 1 < rounds:
+            ids_host = sampler.cohort(r + 1)
+            t0 = time.time()
+            bank.prefetch(ids_host)
+            if ef is not None:
+                ef.prefetch(ids_host)
+            ms["prefetch"] = (time.time() - t0) * 1e3
+        parts.append(ms)
+        bytes_up += int(torch.unique(ids).numel()) * msg_b
+        bytes_down += n * down_b
+    counts = launch_counts(kerns)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    leaves = tree_leaves(bank.rows)
+    steps = rounds * q
+    check_counts("lm spill", counts, {
+        "storm_update": 2 * steps, "adafbio_update": steps + rounds,
+        "quantize_stoch": len(leaves) * rounds if codec == "int8" else 0,
+        "dequantize": len(leaves) * rounds if codec == "int8" else 0})
+    check_wire("lm spill", leaves, codec, msg_b)
+    want_up = sum(int(torch.unique(sampler.cohort(r)).numel())
+                  for r in range(rounds)) * msg_b
+    if (bytes_up, bytes_down) != (want_up, rounds * n * down_b):
+        raise AssertionError(f"lm spill: bytes {bytes_up}, {bytes_down}")
+    if ef is not None:
+        bad = [name for name, t in named_leaves(ef.materialize())
+               if not bool(torch.isfinite(t).all())]
+        if bad:
+            raise AssertionError(f"lm spill: non-finite EF {bad}")
+    row_b = bank.nbytes // n
+    pinned = bank.nbytes + row_b + (ef.nbytes if ef is not None else 0)
+    return dict(bank=bank, ef=ef, last_sync=last_sync, server=server,
+                counts=counts, parts=parts, peak_gb=peak, init_s=init_s,
+                pinned=pinned, row_b=row_b, msg_b=msg_b, down_b=down_b,
+                bytes=(bytes_up, bytes_down), n_leaves=len(leaves))
+
+
+def spill_rates(out, c):
+    """H2D GB/s of round 0's gather (no prefetch before it: C rows of the
+    bank and, with EF, of the EF bank) and D2H GB/s of the last round's
+    broadcast (one row; base is allocated in round 0's)."""
+    ef_row = out["ef"].nbytes // out["bank"].n if out["ef"] else 0
+    h2d = c * (out["row_b"] + ef_row) / (out["parts"][0]["gather"] / 1e3)
+    d2h = (out["row_b"] + c * ef_row) / (out["parts"][-1]["broadcast"] / 1e3)
+    return h2d / 1e9, d2h / 1e9
+
+
+def lm_spill_phase(torch, kerns):
+    """lm-population-spill-qwen1.5-4b: qwen1.5-4b's population at full
+    width and depth with the bank in pinned host memory (N SPILL_N, or
+    SPILL_SMALL_N where SPILL_N + 1 rows exceed half the host's memory; C
+    SPILL_C, codec none, LM_ROUNDS rounds) under SPILL_CUTS; then one round
+    at SPILL_OTHER_N of N at the same cut, whose peak must lie within
+    SPILL_PEAK_SAME of the first run's. Prints ms a round in parts, the
+    transfer rates, whether the prefetch freed the next gather, the pinned
+    bytes and the peak beside the dense bank's device bytes; returns the
+    launch counts."""
+    from repro_torch.configs import get_arch
+    name = "lm-population-spill-qwen1.5-4b"
+    full = get_arch(LM_ARCH).n_layers
+    row_full, mem = spill_row_bytes(get_arch(LM_ARCH)), host_mem_total()
+    n = SPILL_N if (SPILL_N + 1) * row_full <= mem / 2 else SPILL_SMALL_N
+    why = (f"{SPILL_N + 1} rows of {row_full / 1e9:.2f} GB pinned "
+           f"({(SPILL_N + 1) * row_full / 1e9:.1f} GB) "
+           f"{'within' if n == SPILL_N else 'exceed'} half of MemTotal "
+           f"{mem / 1e9:.1f} GB")
+    print(f"{name}: N {n} ({why})", flush=True)
+    tried = []
+    for seq, layers in SPILL_CUTS:
+        free_device_memory(torch)
+        err = None
+        t0 = time.time()
+        try:
+            out = lm_spill_rounds(torch, kerns, lm_depth_cfg(layers), n,
+                                  SPILL_C, seq)
+        except torch.cuda.OutOfMemoryError as e:
+            err = str(e).splitlines()[0]
+        if err is None and out["peak_gb"] <= LM_PEAK_GB:
+            break
+        tried.append(f"seq {seq} L {layers}: " + (
+            f"out of memory ({err})" if err else
+            f"peak {out['peak_gb']:.2f} GB"))
+        out = None
+    else:
+        raise AssertionError(f"{name}: nothing fits: {tried}")
+    secs = time.time() - t0
+    h2d, d2h = spill_rates(out, SPILL_C)
+    parts = [{k: round(v, 2) for k, v in p.items()} for p in out["parts"]]
+    free_gather = out["parts"][-1]["gather"]
+    print(f"{name}: N {n}, C {SPILL_C}, seq {seq}, {layers} of {full} "
+          f"layers (cut: {'; '.join(tried) or 'none'}), {LM_ROUNDS} rounds "
+          f"of q {LM_FED['q']}: ms a round by part {parts}; init "
+          f"{out['init_s']:.2f} s (row by row, pinned); H2D "
+          f"{h2d:.2f} GB/s (round 0's gather), D2H {d2h:.2f} GB/s (the "
+          f"last broadcast); the prefetched gather {free_gather:.2f} ms "
+          f"against {out['parts'][0]['gather']:.2f} ms without "
+          f"({'free' if free_gather < 0.05 * out['parts'][0]['gather'] else 'not free'}); "
+          f"pinned host {out['pinned'] / 1e9:.2f} GB; device peak "
+          f"{out['peak_gb']:.2f} GB against a dense bank's "
+          f"{n * out['row_b'] / 1e9:.2f} GB of device memory at N {n}; "
+          f"launches {out['counts']}; wire totals (none): "
+          f"bytes_up={out['bytes'][0]} bytes_down={out['bytes'][1]} "
+          f"({secs:.1f} s)", flush=True)
+    counts, peak = out["counts"], out["peak_gb"]
+    del out
+    free_device_memory(torch)
+    other = SPILL_OTHER_N[n]
+    t0 = time.time()
+    out = lm_spill_rounds(torch, kerns, lm_depth_cfg(layers), other,
+                          SPILL_C, seq, rounds=1)
+    add_counts(counts, out["counts"])
+    gap = abs(out["peak_gb"] - peak) * 1e9
+    print(f"{name}: one round at N {other}, same cut: device peak "
+          f"{out['peak_gb']:.2f} GB ({gap / 2 ** 30:.3f} GiB from N {n}'s; "
+          f"a dense bank's {other * out['row_b'] / 1e9:.2f} GB at N "
+          f"{other}), pinned host {out['pinned'] / 1e9:.2f} GB, ms by part "
+          f"{[{k: round(v, 2) for k, v in p.items()} for p in out['parts']]} "
+          f"({time.time() - t0:.1f} s)", flush=True)
+    del out
+    free_device_memory(torch)
+    if gap > SPILL_PEAK_SAME_GIB * 2 ** 30:
+        raise AssertionError(f"{name}: the device peak moved "
+                             f"{gap / 2 ** 30:.3f} GiB between N {n} and "
+                             f"N {other}")
+    return counts
+
+
+def lm_spill_int8_phase(torch, kerns, dense):
+    """lm-population-spill-int8-qwen1.5-4b: the lm-population-int8 phase's
+    spec and seed at its cut, spilled: the bank, the EF bank, last_sync
+    and the server equal the dense phase's (``dense``, kept on the host)
+    bit for bit, and the device peak is no higher. Returns the counts."""
+    name = "lm-population-spill-int8-qwen1.5-4b"
+    spec = dict(LM_ROUND_PHASES)["lm-population-int8-qwen1.5-4b"]
+    free_device_memory(torch)
+    t0 = time.time()
+    out = lm_spill_rounds(torch, kerns, lm_depth_cfg(dense["layers"]),
+                          spec["n"], spec["c"], dense["seq"], spec["codec"],
+                          rounds=spec.get("rounds", LM_ROUNDS),
+                          seed=spec.get("seed", 0))
+    # leaf by leaf on the host: the banks' dense views one leaf at a time
+    want = dict(named_leaves(dense["final"]))
+    got = {"bank": out["bank"].lazy_leaves(), "ef": out["ef"].lazy_leaves(),
+           "last_sync": out["last_sync"], "server": out["server"]}
+    diff = []
+    for k, a in named_leaves(got):
+        a = a.fetch(0, a.shape[0]) if hasattr(a, "fetch") else a.cpu()
+        if not torch.equal(a, want.pop(k)):
+            diff.append(k)
+        del a
+    diff += sorted(want)             # leaves the spilled run lacks
+    h2d, d2h = spill_rates(out, spec["c"])
+    print(f"{name}: N {spec['n']}, C {spec['c']}, int8 + EF, seq "
+          f"{dense['seq']}, {dense['layers']} layers: ms a round by part "
+          f"{[{k: round(v, 2) for k, v in p.items()} for p in out['parts']]}; "
+          f"H2D {h2d:.2f} GB/s, D2H {d2h:.2f} GB/s; device peak "
+          f"{out['peak_gb']:.2f} GB against the dense phase's "
+          f"{dense['peak_gb']:.2f} GB; pinned host {out['pinned'] / 1e9:.2f} "
+          f"GB; bank, EF bank, last_sync and server equal to the dense "
+          f"phase's bit for bit: {not diff}; launches {out['counts']} "
+          f"({time.time() - t0:.1f} s)", flush=True)
+    counts, peak = out["counts"], out["peak_gb"]
+    del out, got
+    free_device_memory(torch)
+    if diff:
+        raise AssertionError(f"{name}: differs from the dense phase at "
+                             f"{diff[:8]}")
+    if peak > dense["peak_gb"]:
+        raise AssertionError(f"{name}: peak {peak:.2f} GB above the dense "
+                             f"phase's {dense['peak_gb']:.2f}")
+    return counts
 
 
 class LevelReplay:
@@ -3631,13 +4042,16 @@ def adafbio_phases(torch, kern, qkern, ref, ops):
     return numbers, launches
 
 
+START = time.time()
+
+
 def free_device_memory(torch):
     gc.collect()
     torch.cuda.empty_cache()
     gib = 2 ** 30
     print(f"device memory allocated {torch.cuda.memory_allocated() / gib:.2f} "
-          f"GiB, reserved {torch.cuda.memory_reserved() / gib:.2f} GiB",
-          flush=True)
+          f"GiB, reserved {torch.cuda.memory_reserved() / gib:.2f} GiB "
+          f"(at {time.time() - START:.1f} s)", flush=True)
 
 
 def main() -> int:
@@ -3682,14 +4096,15 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "max_abs_err")},
             **{k: v for k, v in packed.items() if k.startswith("per_row_")},
             **row}
-    lm_counts, lm = lm_train_phase(torch, (kern, qkern))
+    lm_counts, lm = lm_train_phase(torch, (kern, qkern),
+                                   lm_depth_cfg(LM_TRAIN_LAYERS))
     add_counts(launches, lm_counts)
     for name, ms in lm["kernel_ms"].items():
         numbers[name]["lm_step_ms"] = ms
     free_device_memory(torch)
     # the ssm and hybrid families' trainers (ROADMAP 1h)
     add_counts(launches, lm_family_phase(
-        torch, (kern, qkern), HYBRID_ARCH, (get_arch(HYBRID_ARCH).n_layers,),
+        torch, (kern, qkern), HYBRID_ARCH, HYBRID_DEPTHS,
         LM_STEPS))
     add_counts(launches, lm_family_phase(torch, (kern, qkern), SSM_ARCH,
                                          FALCON_DEPTHS, FALCON_STEPS))
@@ -3698,8 +4113,18 @@ def main() -> int:
     add_counts(launches, train_ckpt_serve_phase(torch, (kern, qkern)))
     free_device_memory(torch)
     for name, spec in LM_ROUND_PHASES:
-        counts, _ = lm_rounds_phase(torch, (kern, qkern), name, spec)
+        keep = name == "lm-population-int8-qwen1.5-4b"
+        counts, run = lm_rounds_phase(torch, (kern, qkern), name, spec,
+                                      keep=keep)
         add_counts(launches, counts)
+        if keep:
+            dense_int8 = run
+    # the host-spill bank (ROADMAP 2c): the int8 phase spilled, then the
+    # population at full depth
+    add_counts(launches, lm_spill_int8_phase(torch, (kern, qkern),
+                                             dense_int8))
+    del dense_int8
+    add_counts(launches, lm_spill_phase(torch, (kern, qkern)))
     lm_rounds_parity(torch, (kern, qkern))
     # rows 3-4 of the kernels line: the codec's per-leaf launch at the
     # embedding leaf (this slice's path), the packed message at the MNIST

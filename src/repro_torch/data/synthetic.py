@@ -55,12 +55,16 @@ class TorchLMDraws:
 
     def categorical(self, client: int, step: int, slot: int,
                     logits: torch.Tensor, shape) -> torch.Tensor:
-        g = devices.generator(self.device, self.seed, _TOKEN_SALT, client,
-                              step, slot)
-        probs = torch.softmax(logits.to(self.device), dim=-1)
+        # drawn on the host, then moved: on a CUDA device
+        # ``torch.multinomial`` drew other tokens from one run to the next
+        # with the same generator seed (an H100), and a run must be a
+        # function of its seed
+        g = devices.generator("cpu", self.seed, _TOKEN_SALT, client, step,
+                              slot)
+        probs = torch.softmax(logits.cpu(), dim=-1)
         n = math.prod(shape)
         draw = torch.multinomial(probs, n, replacement=True, generator=g)
-        return draw.reshape(tuple(shape)).to(torch.int32)
+        return draw.reshape(tuple(shape)).to(torch.int32).to(self.device)
 
     def normal(self, stream: int, client: int, shape) -> torch.Tensor:
         g = devices.generator(self.device, self.seed, _STUB_SALT, stream,

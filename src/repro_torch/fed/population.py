@@ -32,7 +32,11 @@ source of torch generators seeded by (seed, salt, round), on the reference's
 salts (0x0DE1A7 uniform, 0x71E5A tier assignment, 0x71D0D tier draws,
 0x10C4A lognormal). The parity tests hand in the reference's draws.
 
-The cohort-only round of the host-spill bank is not ported.
+For banks the card cannot hold, :func:`make_cohort_round` is the round's
+cohort-only core: the caller gathers the C rows and writes them back
+(:class:`repro_torch.fed.spill.HostSpillBank` keeps the N rows in host
+memory). Both builders run the same steps and aggregate
+(:func:`_round_pieces`).
 """
 from __future__ import annotations
 
@@ -152,6 +156,33 @@ class ClientPopulation:
 
 # ------------------------------------------------------------ fused round
 
+def _round_pieces(local_step_ids: Callable, sync_update: Callable, q: int,
+                  staleness_decay: float, codec):
+    """What the dense and the cohort-only rounds share: ``(steps,
+    aggregate, agg, lossy)``. ``steps(cur, server, ids, batches_q,
+    draws_q)`` runs the q local steps of the gathered cohort (the gathered
+    rows go after step 0); ``aggregate(server, msgs, last_sync_c,
+    round_id)`` is the staleness-weighted cohort aggregate and the server
+    step."""
+    if q < 1:
+        raise ValueError(f"round needs q >= 1 local steps, got {q}")
+    agg = as_aggregator(sync_update, codec=codec)
+    lossy = agg.codec is not None and agg.codec.lossy
+
+    def steps(cur, server, ids, batches_q, draws_q):
+        for j in range(q):
+            cur, server = local_step_ids(cur, server,
+                                         tree_map(lambda a: a[j], batches_q),
+                                         draws_q[j], ids)
+        return cur, server
+
+    def aggregate(server, msgs, last_sync_c, round_id):
+        w = cohort_staleness_weights(last_sync_c, round_id, staleness_decay)
+        return agg.reduce(server, msgs, weights=w)
+
+    return steps, aggregate, agg, lossy
+
+
 def make_population_round(local_step_ids: Callable, sync_update: Callable,
                           q: int, *, sync_mode: str = "broadcast",
                           staleness_decay: float = 0.0,
@@ -186,16 +217,8 @@ def make_population_round(local_step_ids: Callable, sync_update: Callable,
     if sync_mode not in SYNC_MODES:
         raise ValueError(f"sync_mode must be one of {SYNC_MODES}, "
                          f"got {sync_mode!r}")
-    if q < 1:
-        raise ValueError(f"round needs q >= 1 local steps, got {q}")
-    agg = as_aggregator(sync_update, codec=codec)
-    codec = agg.codec
-    lossy = codec is not None and codec.lossy
-
-    def step(cur, server, ids, batches_q, draws_q, j):
-        return local_step_ids(cur, server,
-                              tree_map(lambda a: a[j], batches_q),
-                              draws_q[j], ids)
+    steps, aggregate, agg, lossy = _round_pieces(
+        local_step_ids, sync_update, q, staleness_decay, codec)
 
     def write_back(bank_states, last_sync, new_client, ids, round_id):
         if sync_mode == "broadcast":
@@ -208,11 +231,11 @@ def make_population_round(local_step_ids: Callable, sync_update: Callable,
     def round_fn(bank_states, last_sync, server, ids, batches_q, draws_q,
                  round_id):
         bank_states = take(bank_states)
-        cur = gather(bank_states, ids)
-        for j in range(q):              # the gathered rows go after step 0
-            cur, server = step(cur, server, ids, batches_q, draws_q, j)
-        w = staleness_weights(last_sync, ids, round_id, staleness_decay)
-        new_client, server = agg.reduce(server, cur, weights=w)
+        cur, server = steps(gather(bank_states, ids), server, ids, batches_q,
+                            draws_q)
+        new_client, server = aggregate(server, cur,
+                                       last_sync.index_select(0, ids),
+                                       round_id)
         bank_states, last_sync = write_back(bank_states, last_sync,
                                             new_client, ids, round_id)
         return bank_states, last_sync, server
@@ -223,19 +246,64 @@ def make_population_round(local_step_ids: Callable, sync_update: Callable,
     def round_fn_codec(bank_states, last_sync, ef_bank, server, ids,
                        batches_q, draws_q, round_id, u=None):
         bank_states, ef_bank = take(bank_states), take(ef_bank)
-        cur = ref = gather(bank_states, ids)   # server-known dispatch states
-        for j in range(q):
-            cur, server = step(cur, server, ids, batches_q, draws_q, j)
+        ref = gather(bank_states, ids)      # server-known dispatch states
+        cur, server = steps(ref, server, ids, batches_q, draws_q)
         ef_c = gather(ef_bank, ids) if ef_bank is not None else None
         recon, ef_c = agg.messages(ref, cur, ef_c, u)
         del ref, cur
         if ef_bank is not None:
             ef_bank = scatter(ef_bank, ids, ef_c)
-        w = staleness_weights(last_sync, ids, round_id, staleness_decay)
-        new_client, server = agg.reduce(server, recon, weights=w)
+        new_client, server = aggregate(server, recon,
+                                       last_sync.index_select(0, ids),
+                                       round_id)
         bank_states, last_sync = write_back(bank_states, last_sync,
                                             new_client, ids, round_id)
         return bank_states, last_sync, ef_bank, server
+
+    return round_fn_codec
+
+
+def make_cohort_round(local_step_ids: Callable, sync_update: Callable,
+                      q: int, *, staleness_decay: float = 0.0,
+                      codec=None) -> Callable:
+    """The cohort-only core of :func:`make_population_round`, for banks the
+    card cannot hold: gather and write-back are the CALLER's
+    (:class:`repro_torch.fed.spill.HostSpillBank` keeps the [N, ...] rows
+    in host memory), the round sees only the [C, ...] cohort.
+
+    ``round_fn(cur, last_sync_c, server, ids, batches_q, draws_q, round_id)
+    -> (new_client, server)``, ``cur`` the gathered cohort states and
+    ``last_sync_c`` the gathered int32 [C] slice of the sync bookkeeping.
+    The q local steps, the staleness-weighted aggregate and the server step
+    are :func:`make_population_round`'s own, so a spilled run replays the
+    dense broadcast-mode trajectory (the caller's write-back: every row :=
+    ``new_client``, ``last_sync = round_id + 1``). The round takes the
+    entries out of the ``cur`` (and ``ef_c``) dicts, as the dense round
+    takes them out of the bank, so the gathered rows are freed as the steps
+    replace them. With a lossy ``codec`` the signature grows the gathered EF
+    residual slice and the int8 codec's noise: ``round_fn(cur,
+    last_sync_c, ef_c, server, ids, batches_q, draws_q, round_id, u) ->
+    (new_client, ef_c, server)``; the caller scatters ``ef_c`` back into
+    its EF bank."""
+    steps, aggregate, agg, lossy = _round_pieces(
+        local_step_ids, sync_update, q, staleness_decay, codec)
+
+    def round_fn(cur, last_sync_c, server, ids, batches_q, draws_q,
+                 round_id):
+        cur, server = steps(take(cur), server, ids, batches_q, draws_q)
+        return aggregate(server, cur, last_sync_c, round_id)
+
+    if not lossy:
+        return round_fn
+
+    def round_fn_codec(cur, last_sync_c, ef_c, server, ids, batches_q,
+                       draws_q, round_id, u=None):
+        ref = take(cur)                     # server-known dispatch states
+        cur, server = steps(ref, server, ids, batches_q, draws_q)
+        recon, ef_c = agg.messages(ref, cur, take(ef_c), u)
+        del ref, cur
+        new_client, server = aggregate(server, recon, last_sync_c, round_id)
+        return new_client, ef_c, server
 
     return round_fn_codec
 

@@ -38,9 +38,14 @@ the async delays from a :class:`repro_torch.fed.population.DelayDraws`
 source, the data from :mod:`repro_torch.data.synthetic`'s draw source. The
 parity tests fill them from the reference.
 
+A bank the card cannot hold lives in host memory
+(:class:`repro_torch.fed.spill.HostSpillBank`): its rows are built one
+client at a time (:meth:`FederatedTrainer.init_spilled_population_states`,
+equal to the dense init bit for bit) and each round sees only its gathered
+cohort (:meth:`FederatedTrainer.cohort_round_fn`).
+
 Not ported, and raising ``NotImplementedError`` naming their ROADMAP item:
-a mesh (1f), the multi-round (mega-scan) builders (2a) and the host-spill
-cohort round (2c).
+a mesh (1f) and the multi-round (mega-scan) builders (2a).
 """
 from __future__ import annotations
 
@@ -58,7 +63,9 @@ from repro_torch.core.tree_util import (take, tree_bcast_axis0, tree_index,
                                         tree_map, tree_mean_axis0)
 from repro_torch.fed.compress import codec_from_config
 from repro_torch.fed.population import (init_async_state, make_async_round,
+                                        make_cohort_round,
                                         make_population_round)
+from repro_torch.fed.spill import HostSpillBank
 from repro_torch.fed.topology import (GossipAggregator, StarAggregator,
                                       make_gossip_round)
 from repro_torch.models.model import ModelCtx, check_family, model_specs
@@ -268,6 +275,35 @@ class FederatedTrainer:
         return bank, torch.zeros((n,), dtype=torch.int32,
                                  device=self.device), server
 
+    def init_spilled_population_states(self, params, batch,
+                                       k: torch.Tensor):
+        """:meth:`init_population_states` without a dense bank on the card:
+        each client's row is built alone (``init_client_state`` on its own
+        batch and depth, what the LM problem's ``client_loop`` runs for it
+        in the dense init) and goes into a :class:`repro_torch.fed.spill.
+        HostSpillBank` (pinned on a CUDA device) as soon as it is built; the
+        warm start's client mean is taken leaf by leaf, that leaf's N rows
+        stacked on the device. Equal to the dense init bit for bit where the
+        problem steps its clients one at a time. Returns ``(bank,
+        last_sync, server)``, ``last_sync`` an int32 [n] host tensor."""
+        n = k.shape[0]
+        bank = HostSpillBank.allocate(self.abstract_population_states(n),
+                                      self.device)
+        for i in range(n):
+            row = self.alg.init_client_state(
+                params["x"], params["y"],
+                split_client_batch(self.cfg, tree_map(lambda a: a[i:i + 1],
+                                                      batch)), k[i:i + 1])
+            bank.scatter([i], row)
+            del row
+        server = self.alg.init_server_state(params["x"])
+        if self.alg.fed.adaptive != "none":
+            avg = {key: tree_map(lambda rows: tree_mean_axis0(
+                rows.to(self.device)), bank.rows[key])
+                for key in ("v", "w")}
+            server = warm_adaptive(server, avg, self.alg.fed)
+        return bank, torch.zeros((n,), dtype=torch.int32), server
+
     def init_states(self, params, batch, k: torch.Tensor):
         """``(states, server)`` of the trainer's M clients."""
         states, _, server = self.init_population_states(params, batch, k)
@@ -281,6 +317,16 @@ class FederatedTrainer:
         return tree_map(lambda s: torch.zeros(s.shape, dtype=torch.float32,
                                               device=self.device),
                         self.abstract_population_states(n))
+
+    def init_spilled_ef_bank(self, n: int) -> Optional[HostSpillBank]:
+        """:meth:`init_ef_bank` as a :class:`repro_torch.fed.spill.
+        HostSpillBank` of zeros made in host memory, or None."""
+        if not self.codec.stateful:
+            return None
+        return HostSpillBank.allocate(
+            tree_map(lambda s: TensorSpec(s.shape, torch.float32),
+                     self.abstract_population_states(n)), self.device,
+            zero=True)
 
     # -------------------------------------------------- step functions
 
@@ -497,10 +543,22 @@ class FederatedTrainer:
         return make_gossip_round(self.gossip_local_step_fn(n), agg,
                                  q if q is not None else self.fed.q)
 
-    # -------------------------------------------------- not ported
+    def cohort_round_fn(self, n: int, q: Optional[int] = None, *,
+                        staleness_decay: float = 0.0) -> Callable:
+        """The cohort-only round of the host-spill bank
+        (:func:`repro_torch.fed.population.make_cohort_round`): the math of
+        :meth:`population_round_fn` without the [N, ...] bank, whose
+        gather and write-back are the caller's. ``round(cur, last_sync_c,
+        server, ids, batches_q, k_q, round_id) -> (new_client, server)``;
+        with a lossy codec ``round(cur, last_sync_c, ef_c, server, ids,
+        batches_q, k_q, round_id, u) -> (new_client, ef_c, server)``. The
+        round takes the entries out of ``cur`` and ``ef_c``."""
+        return make_cohort_round(
+            self.cohort_local_step_fn(n), self.star_aggregator(n),
+            q if q is not None else self.fed.q,
+            staleness_decay=staleness_decay, codec=self.codec)
 
-    def cohort_round_fn(self, n: int, q: Optional[int] = None, **kw):
-        _not_ported("the LM cohort round (host spill)", "2c (fed/spill.py)")
+    # -------------------------------------------------- not ported
 
     def multi_population_round_fn(self, n: int, q: Optional[int] = None,
                                   **kw):

@@ -14,7 +14,10 @@ CPU, for a ``--reduced`` model). Four modes, as the reference's:
                round (scan engine).
   population   ``--population N --cohort C``: N client states in a bank, a
                ``--sampler`` cohort of C stepped a round, the broadcast
-               sync, the codec's EF residuals in a bank.
+               sync, the codec's EF residuals in a bank. ``--spill host``
+               keeps both banks in (pinned) host memory and moves only the
+               cohort's rows to the card each round: the same trajectory
+               and checkpoints, with the card's memory independent of N.
   async        ``--max-staleness`` above 0: overlapping cohorts, delayed
                arrivals (``--delay-model``, ``--max-delay``, ``--tiers``,
                ``--trace-file``), the staleness gate and delay-adaptive
@@ -34,7 +37,7 @@ The flags are the JAX launcher's. Those that need a part of the port still
 to come keep the reference's default and raise ``NotImplementedError``
 naming the ROADMAP item when set: ``--mesh`` (1f), ``--rounds-per-scan``
 above 1 (2a), ``--metrics-out``, ``--metrics-every`` and ``--profile``
-(2b), ``--spill`` (2c).
+(2b).
 """
 from __future__ import annotations
 
@@ -59,6 +62,8 @@ from repro_torch.fed.round import ENGINES
 from repro_torch.fed.runtime import (FederatedTrainer, NeumannDraws,
                                      client_batch_specs, round_depths)
 from repro_torch.fed.sampling import SAMPLERS, load_delay_trace, make_sampler
+from repro_torch.fed.spill import HostSpillBank
+from repro_torch.models.params import TensorSpec
 
 # seed salts of the parameter draw (the reference's fold_in(key, 0x9142A))
 # and of the cohort sampler (its fold_in(key, 23))
@@ -68,7 +73,6 @@ SAMPLER_SALT = 23
 # the reference's default, ROADMAP item)
 NOT_PORTED = (
     ("mesh", "none", "1f (sharding.py, launch/mesh.py)"),
-    ("spill", "none", "2c (fed/spill.py, the host-spill bank)"),
     ("metrics_out", None, "2b (obs/, telemetry)"),
     ("metrics_every", 8, "2b (obs/, telemetry)"),
     ("profile", None, "2b (obs/, telemetry)"),
@@ -98,7 +102,9 @@ def parse_args(argv=None):
                     help="run seed (params, data, Neumann depths and codec "
                          "noise all derive from it)")
     ap.add_argument("--spill", default="none", choices=["none", "host"],
-                    help="not ported (raises unless none): ROADMAP 2c")
+                    help="host: keep the population bank in pinned host "
+                         "memory and move only each round's cohort to the "
+                         "card (population mode, synchronous rounds)")
     ap.add_argument("--ckpt", default=None,
                     help="write the training state here at the end (the "
                          "JAX package's .npz/.json files)")
@@ -186,15 +192,25 @@ def parse_args(argv=None):
 
 def check_ported(args) -> None:
     """Raise ``NotImplementedError`` for a flag set away from the
-    reference's default that needs a part of the port still to come."""
+    reference's default that needs a part of the port still to come, and
+    ``SystemExit`` for the reference's refusals of ``--spill host`` and
+    ``--rounds-per-scan``, in the reference's order."""
     for attr, default, item in NOT_PORTED:
         if getattr(args, attr) != default:
             flag = "--" + attr.replace("_", "-")
             raise NotImplementedError(f"{flag} is not ported yet: ROADMAP "
                                       f"item {item}")
+    if args.spill != "none" and not args.population:
+        raise SystemExit("--spill host spills the population bank: run "
+                         "with --population N")
     if args.rounds_per_scan < 1:
         raise SystemExit("--rounds-per-scan must be >= 1")
     if args.rounds_per_scan > 1:
+        if args.spill != "none":
+            raise SystemExit("--spill host streams the bank through host "
+                             "memory round-by-round: the mega-scan tier "
+                             "needs device-resident rounds (set "
+                             "--rounds-per-scan 1 or --spill none)")
         raise NotImplementedError("--rounds-per-scan > 1 is not ported yet: "
                                   "ROADMAP item 2a (mega-scan)")
 
@@ -266,6 +282,10 @@ def run_cli(args, cfg, fed, shape, tr: FederatedTrainer):
         if args.max_staleness != 0:
             raise SystemExit("--engine gossip runs synchronous lockstep "
                              "rounds: set --max-staleness 0")
+        if args.spill != "none":
+            raise SystemExit("--engine gossip mixes the whole bank every "
+                             "round: the bank must stay device-resident "
+                             "(--spill none)")
         return run_gossip(args, cfg, fed, shape, tr)
     if args.population:
         return run_population(args, cfg, fed, shape, tr)
@@ -431,11 +451,17 @@ def run_population(args, cfg, fed, shape, tr: FederatedTrainer):
                            devlib.mix_seed(args.seed, SAMPLER_SALT),
                            trace_file=args.trace_file)
     if args.max_staleness != 0:
+        if args.spill != "none":
+            raise SystemExit("--spill host replays the synchronous "
+                             "broadcast rounds: the async pending buffer "
+                             "is device-resident (set --max-staleness 0)")
         return run_population_async(args, cfg, fed, shape, tr, sampler)
     if args.delay_model != "uniform" or args.tiers is not None:
         raise SystemExit("--delay-model / --tiers are async knobs: set "
                          "--max-staleness != 0 to enable asynchronous "
                          "execution")
+    if args.spill != "none":
+        return run_population_spill(args, cfg, fed, shape, tr, sampler)
     specs_c, _, data, depths, params, batch0 = _bank_setup(
         args, cfg, fed, shape, tr, n, c)
     bank, last_sync, server = tr.init_population_states(params, batch0,
@@ -510,6 +536,135 @@ def run_population(args, cfg, fed, shape, tr: FederatedTrainer):
             "server": server, "step": n_rounds * q, "losses": losses,
             "seconds": seconds, "bytes_up": bytes_up,
             "bytes_down": bytes_down, "wire": (msg_b, down_b)}
+
+
+def run_population_spill(args, cfg, fed, shape, tr: FederatedTrainer,
+                         sampler):
+    """Host-spill population mode (``--spill host``): the [N, ...] bank and
+    the EF bank live in host memory (:class:`repro_torch.fed.spill.
+    HostSpillBank`, pinned on the card), only each round's C sampled rows
+    travel to the card, and the round is the cohort-only
+    ``tr.cohort_round_fn``: the dense broadcast rounds' math, so the run
+    and its checkpoints equal the dense runner's bit for bit, and the
+    card's memory does not grow with N. The bank is built one row at a
+    time (``tr.init_spilled_population_states``); ``--resume`` loads the
+    checkpoint to the host without passing through the card. The next
+    round's cohort is prefetched on a side stream while this round's
+    progress line and the next round's batches are built. Returns
+    :func:`run_population`'s dict with the two host banks (``spill``,
+    ``ef_spill``) in place of the dense ``bank`` and ``ef`` (None)."""
+    n, c = args.population, args.cohort
+    dev = tr.device
+    specs_c, _, data, depths, params, batch0 = _bank_setup(
+        args, cfg, fed, shape, tr, n, c)
+    lossy = tr.codec.lossy
+    start = 0
+    if args.resume and args.ckpt:
+        # the banks come to the host as TensorSpecs on the CPU; the
+        # server's template is real, on the card
+        spec_n = tr.abstract_population_states(n)
+        spec_ef = (tree_map(lambda s: TensorSpec(s.shape, torch.float32),
+                            spec_n) if tr.codec.stateful else None)
+        srv = tr.alg.init_server_state(params["x"])
+        ls = TensorSpec((n,), torch.int32)
+        tmpl = (spec_n, ls, spec_ef, srv) if lossy else (spec_n, ls, srv)
+        del params, batch0
+        loaded, start = load_checkpoint(args.ckpt, tmpl, device="cpu")
+        if lossy:
+            bank, last_sync, ef, server = loaded
+        else:
+            bank, last_sync, server = loaded
+            ef = None
+        spill = HostSpillBank.from_device(bank, dev)
+        ef_spill = (HostSpillBank.from_device(ef, dev) if ef is not None
+                    else None)
+        del bank, ef, loaded
+        print(f"resumed spilled population run from step {start}")
+    else:
+        spill, last_sync, server = tr.init_spilled_population_states(
+            params, batch0, depths.init())
+        ef_spill = tr.init_spilled_ef_bank(n)
+        del params, batch0
+    round_fn = tr.cohort_round_fn(n)
+    ev = tr.eval_fn()
+    noise = compress.CodecNoise(args.seed, dev)
+    msg_b, down_b = wire_costs(tr, n)
+    bytes_up = bytes_down = 0
+    q = fed.q
+    start_round, n_rounds = _rounds(args, q, start, "population")
+    print(f"spilled population mode: N={n} clients "
+          f"({spill.nbytes / 1e6:.1f}MB host bank), C={c} cohort/round "
+          f"({args.sampler} sampler), rounds {start_round}..{n_rounds - 1} "
+          f"of q={q}", flush=True)
+    eval_rounds = max(args.eval_every // q, 1)
+    losses, seconds = [], []
+    t0 = time.time()
+    ids_host = sampler.cohort(start_round)
+    for r in range(start_round, n_rounds):
+        t = r * q
+        ids = devlib.to_device(ids_host, dev)
+        batch_q = tree_stack([make_cohort_batch(data, cfg, specs_c, t + j,
+                                                ids_host, dev)
+                              for j in range(q)])
+        k_q = round_depths(depths, r, q, ids)
+        r0 = time.time()
+        cur = spill.gather(ids_host)
+        ls_c = devlib.to_device(last_sync.index_select(0, ids_host.long()),
+                                dev)
+        if lossy:
+            ef_c = ef_spill.gather(ids_host) if ef_spill is not None else None
+            u = noise(r, ids) if tr.codec.name == "int8" else None
+            new_client, ef_c, server = round_fn(cur, ls_c, ef_c, server, ids,
+                                                batch_q, k_q, r, u)
+        else:
+            new_client, server = round_fn(cur, ls_c, server, ids, batch_q,
+                                          k_q, r)
+        # the broadcast write-back, on the host: every row := new_client
+        # (lazily), last_sync := r + 1; the cohort's EF rows scattered
+        spill.broadcast(new_client)
+        last_sync.fill_(r + 1)
+        if lossy and ef_spill is not None:
+            ef_spill.scatter(ids_host, ef_c)
+            del ef_c
+        next_ids = sampler.cohort(r + 1) if r + 1 < n_rounds else None
+        if next_ids is not None:
+            spill.prefetch(next_ids)
+            if ef_spill is not None:
+                ef_spill.prefetch(next_ids)
+        devlib.fence(dev)
+        dt = time.time() - r0
+        seconds.append(dt)
+        bytes_up += int(np.unique(np.asarray(ids_host)).size) * msg_b
+        bytes_down += n * down_b
+        if r % eval_rounds == 0 or r == n_rounds - 1:
+            loss = float(ev(tree_map(lambda v: v.unsqueeze(0), new_client),
+                            tree_index(batch_q, q - 1)))
+            losses.append(loss)
+            print(progress_line(loss=loss, elapsed=time.time() - t0,
+                                step=t + q - 1, round=r, round_seconds=dt,
+                                bytes_up=bytes_up, bytes_down=bytes_down,
+                                cohort=np.asarray(ids_host).tolist()),
+                  flush=True)
+        del new_client, batch_q
+        if next_ids is not None:
+            ids_host = next_ids
+    print(f"wire totals ({tr.codec.name}): bytes_up={bytes_up} "
+          f"bytes_down={bytes_down}", flush=True)
+    if args.ckpt:
+        # lazy leaves: the save pulls one shard's rows at a time, so the
+        # dense bank is never built (one pull with --ckpt-shards 1)
+        bank_l = spill.lazy_leaves()
+        ef_l = ef_spill.lazy_leaves() if ef_spill is not None else None
+        state = ((bank_l, last_sync, ef_l, server) if lossy
+                 else (bank_l, last_sync, server))
+        save_checkpoint(args.ckpt, state, n_rounds * q,
+                        shards=args.ckpt_shards)
+        print(f"saved population checkpoint to {args.ckpt}")
+    return {"bank": None, "last_sync": last_sync, "ef": None,
+            "server": server, "step": n_rounds * q, "losses": losses,
+            "seconds": seconds, "bytes_up": bytes_up,
+            "bytes_down": bytes_down, "wire": (msg_b, down_b),
+            "spill": spill, "ef_spill": ef_spill}
 
 
 def run_gossip(args, cfg, fed, shape, tr: FederatedTrainer):

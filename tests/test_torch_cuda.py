@@ -681,3 +681,45 @@ def test_engine_on_the_card_serves_encdec(cuda):
             == (cfg.encoder.n_layers + 2 * cfg.n_layers) * len(reqs))
     assert (qd.launches["quant_decode_attention"]
             == cfg.n_layers * len(card.timings["decode"]))
+
+
+def test_spill_bank_prefetch_scatter_gather_on_the_card(cuda):
+    """The host-spill bank on the card: its rows pinned; a prefetch queued
+    on the side stream behind a long spin, then a scatter to the rows it
+    reads, then a gather. The scatter waits for the copy: the prefetched
+    tensors hold the rows as they were before the write (the pinned rows
+    were not overwritten under the copy in flight), and the gather, which
+    the write made miss the prefetch, equals a fresh gather of the written
+    bank. A prefetch that is consumed equals a fresh gather too."""
+    from repro_torch.fed.spill import HostSpillBank
+    n, d = 6, 1 << 20
+    src = {"x": torch.arange(n * d, dtype=torch.float32).reshape(n, d),
+           "y": {"z": torch.randn(n, 3, generator=torch.Generator()
+                                  .manual_seed(0)).to(torch.bfloat16)}}
+    bank = HostSpillBank.from_device(src, cuda)
+    assert all(t.is_pinned() for t in tree_leaves(bank.rows))
+    before = bank.materialize()
+    ids = [4, 1, 4]
+    with torch.cuda.stream(bank._copy_stream()):
+        torch.cuda._sleep(200_000_000)          # ~0.1 s: the copy waits
+    bank.prefetch(ids)
+    inflight = bank._prefetched[1]
+    vals = {"x": torch.full((3, d), -7.0, device=cuda),
+            "y": {"z": torch.full((3, 3), 5.0, device=cuda)}}
+    bank.scatter(ids, vals)
+    torch.cuda.synchronize()
+    for got, want in zip(tree_leaves(inflight), tree_leaves(before)):
+        assert torch.equal(got.cpu(), want[ids])
+    got = bank.gather(ids)
+    fresh = HostSpillBank.from_device(bank.materialize(), cuda).gather(ids)
+    for a, b in zip(tree_leaves(got), tree_leaves(fresh)):
+        assert torch.equal(a, b)
+    assert torch.equal(got["x"][0].cpu(), torch.full((d,), -7.0))
+    bank.prefetch([2, 0])
+    consumed = bank.gather([2, 0])
+    for a, b in zip(tree_leaves(consumed),
+                    tree_leaves(bank.materialize())):
+        assert torch.equal(a.cpu(), b[[2, 0]])
+    # a bank on the card keeps no pageable rows
+    with pytest.raises(ValueError, match="pinned host memory"):
+        HostSpillBank(rows={"x": torch.zeros(2, 3)}, n=2, device=cuda)

@@ -6,7 +6,8 @@ run; the population (codec none and int8), async and gossip modes run,
 bill the bytes their pricing gives and resume equal to an uninterrupted
 run, and the bridge serves a population checkpoint and refuses an async
 one; the flags that need a later part of the port raise naming their
-ROADMAP item; the README's flag table matches the argparse."""
+ROADMAP item, and ``--spill host`` refuses what the reference's refuses;
+the README's flag table matches the argparse."""
 import importlib.util
 import pathlib
 
@@ -165,11 +166,24 @@ def test_bridge_serves_population_checkpoints_and_refuses_async(tmp_path):
 
 @pytest.mark.parametrize("flags,item", [
     (["--mesh", "local"], "1f"), (["--rounds-per-scan", "2"], "2a"),
-    (["--metrics-out", "m.jsonl"], "2b"), (["--profile", "p"], "2b"),
-    (["--spill", "host"], "2c")])
+    (["--metrics-out", "m.jsonl"], "2b"), (["--profile", "p"], "2b")])
 def test_unported_flags_name_their_roadmap_item(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         train_cli.main(SMALL + flags)
+
+
+@pytest.mark.parametrize("flags,why", [
+    ([], "run with --population N"),
+    (["--population", "4", "--engine", "gossip"], "device-resident"),
+    (["--population", "4", "--cohort", "2", "--max-staleness", "2"],
+     "async pending buffer"),
+    (["--population", "4", "--rounds-per-scan", "2"], "mega-scan tier")])
+def test_spill_refusals_are_the_references(flags, why):
+    """``--spill host`` refuses what the reference's launcher refuses,
+    with a ``SystemExit``: no population, gossip, async rounds, more than
+    one round a scan."""
+    with pytest.raises(SystemExit, match=why):
+        train_cli.main(SMALL + ["--spill", "host"] + flags)
 
 
 def test_train_cli_defaults_to_the_card():
