@@ -85,10 +85,10 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
    peak memory and the update kernels' ms inside a step. Every layer of
    the training forward runs under remat (``models/remat.py``), as the
    reference's under ``jax.checkpoint``;
-11b. lm-train-zamba2-1.2b (full width, 10 of its 38 mamba2 layers and
-   the shared block) and lm-train-falcon-mamba-7b (full width, 8 of its
+11b. lm-train-zamba2-1.2b (full width, 8 of its 38 mamba2 layers and
+   the shared block after the sixth) and lm-train-falcon-mamba-7b (full width, 4 of its
    64 layers; FALCON_STEPS steps, one scan round; both depths cut for the
-   script's time limit since PR 23): the
+   script's time limit in PRs 23 and 25): the
    shape and checks of item 11 at LM_FAMILY_FED (item 11's FedConfig at
    rho 1e-2 and theta 0.1: at item 11's own both families diverge
    within a round), every state leaf finite after every step, sync and
@@ -204,8 +204,8 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
    kernel, every request once, every logit finite, req/s, tok/s, steady
    prefill ms by prompt length, steady tick ms, peak memory; each with
    the serve check of item 17 on the same width cut to
-   SERVE_CHECK_LAYERS layers. Then lm-train-qwen3-moe-30b-a3b (depth 6,
-   4 or 2 by the cut rule) and lm-train-internvl2-76b (2 or 1; every
+   SERVE_CHECK_LAYERS layers. Then lm-train-qwen3-moe-30b-a3b (depth 4
+   or 2 by the cut rule) and lm-train-internvl2-76b (1; every
    batch with its prefix embeddings) as item 11b, FALCON_STEPS steps and
    one round; both trainers card vs CPU at reduced size and one
    qwen3-moe layer under remat against the direct layer on the card.
@@ -252,7 +252,22 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it imports neither
    of qwen1.5-4b at full width cut to MESH_LAYERS: the Chrome trace holds
    round_program, batch_build, round/local_scan, round/sync and a
    storm_update kernel event, exact launches;
-24. one JSON line with every kernel's numbers (launches summed over every
+24. the mega-scan slice (megascan_phases, ROADMAP 2a; ``scripts/
+   megascan_phases.py`` runs it alone): megascan-mnist, every FedDriver
+   engine at MNIST width (scan, 8 clients; population int8 + EF, N 32, C
+   8; async int8 + EF with tiered delays; gossip on a ring, int8 + EF;
+   the population with the trace sampler's staged cohorts) at
+   rounds_per_scan 4 against 1 over 11 rounds of q 2: every part of the
+   final state, the counters, the byte totals and the staleness log and
+   histograms bit for bit, equal launches, steady ms a round at both;
+   megascan-lm, the train CLI on qwen1.5-4b at full width, 4 layers, seq
+   64, batch 8, 3 rounds of q 1, --rounds-per-scan 2 against 1 in the
+   scan engine (plain and int8), the int8 population (N 2, C 1: N 4, C 2
+   does not fit), async (N 4, C 2, tiers) and gossip (N 4): the states
+   bit for bit (R 1's kept on the host), the wire totals, equal launches,
+   each run's peak; every chunk of the R > 1 runs under
+   ``torch.cuda.set_sync_debug_mode("error")``;
+25. one JSON line with every kernel's numbers (launches summed over every
    path above), then the result line ``{"ok": true, "device": {...}}``.
 
 Every phase either passes or raises, and the script exits nonzero.
@@ -491,11 +506,13 @@ LM_FED = dict(q=4, neumann_k=2, lr_x=1e-2, lr_y=1e-1)
 LM_STEPS = 8                   # eager 8 steps; scan 2 rounds of q = 4
 # The ssm and hybrid families' trainers (lm_family_phase), at their full
 # width with LM_FAMILY_FED and LM_SEQ x LM_BATCH: zamba2-1.2b at
-# HYBRID_DEPTHS (10 of its 38 layers) for LM_STEPS; falcon-mamba-7b at the
+# HYBRID_DEPTHS (8 of its 38 layers: a segment of 6, the shared block, a
+# tail of 2) for LM_STEPS; falcon-mamba-7b at the
 # first depth of FALCON_DEPTHS that one card holds, for FALCON_STEPS (one
-# scan round of q 4). Both depths were cut (zamba2 from 38, falcon from
-# 32) when the host-spill phases came, to keep the script inside its
-# time limit: zamba2 took ~8.5 s a step and falcon ~12 s at those depths.
+# scan round of q 4). Both depths were cut (zamba2 from 38 to 10, falcon
+# from 32 to 8) when the host-spill phases came, and again (to 8 and 4)
+# when the mega-scan phases came, to keep the script inside its time
+# limit: zamba2 took ~8.5 s a step and falcon ~12 s at 38 and 32.
 # LM_FAMILY_FED is LM_FED at rho 1e-2 and theta 0.1. At LM_FED both
 # families diverge within a round (PERF.md, section 6): the Neumann step
 # theta 1 exceeds 1/L_g, so the first depth-1 step multiplies
@@ -509,8 +526,8 @@ LM_STEPS = 8                   # eager 8 steps; scan 2 rounds of q = 4
 # the same reason (CHECK_THETA, HC_THETA), and the tests hold free runs at
 # rho 1e-2 (tests/test_torch_lm_train.py: RHO).
 LM_FAMILY_FED = dict(LM_FED, rho=1e-2, theta=0.1)
-HYBRID_DEPTHS = (10,)
-FALCON_DEPTHS = (8,)
+HYBRID_DEPTHS = (8,)
+FALCON_DEPTHS = (4,)
 FALCON_STEPS = 4
 # The MoE and vlm slice's trainers (moe_vlm_phases): arch and depths under
 # the same cut rule, FALCON_STEPS steps and one round at LM_FAMILY_FED. At
@@ -518,8 +535,11 @@ FALCON_STEPS = 4
 # layers (3.08 B params) sit near 48 GiB and internvl2-76b's 2 (3.81 B)
 # near 58 GiB. llama4-scout-17b-a16e (4.27 B at one layer with its head) and
 # deepseek-67b (the dense family, trained by lm-train-qwen1.5-4b) train in
-# the CPU tests only.
-MOE_VLM_TRAIN = [("qwen3-moe-30b-a3b", (6, 4, 2)), ("internvl2-76b", (2, 1))]
+# the CPU tests only. Cut for the script's time limit since PR 25:
+# qwen3-moe from 6 layers to 4, and internvl2-76b straight to 1 (2 ran
+# out of memory in this script in every call of PRs 21-25, after about 30
+# s).
+MOE_VLM_TRAIN = [("qwen3-moe-30b-a3b", (4, 2)), ("internvl2-76b", (1,))]
 # the same trainers at reduced size, card against CPU (lm_family_parity):
 # 2 training sequences of 512 tokens (2 scan chunks each), within the
 # CPU tests' per-stage limit against the reference
@@ -2787,6 +2807,358 @@ def mesh_obs_phases(torch, kerns):
     return launches
 
 
+# The mega-scan slice (megascan_phases, ROADMAP 2a): every FedDriver
+# engine at MNIST width, rounds_per_scan MEGA_R against 1 over MEGA_ROUNDS
+# rounds of MEGA_Q steps (so each R run ends on a shorter chunk), bit for
+# bit; then the train CLI on qwen1.5-4b at full width, --rounds-per-scan
+# MEGA_LM_R against 1 over 3 rounds of q 1 (a partial chunk at the end),
+# bit for bit, each mode at MEGA_LM_LAYERS layers, else, where it does
+# not fit the card, at MEGA_LM_CUT. The int8 population runs at
+# lm-population-int8's N 2, C 1: at N 4, C 2 its f32 EF bank and the
+# cohort's f32 EF and codec rows are 75 GB, about as much at 2 layers as
+# at 4 (the embedding and the head are 0.78 B of a client's 1.1 B
+# parameters), and it ran out of memory on the H100 80GB at both depths
+# in every run tried (PERF.md). Every chunk of the R > 1 runs runs under
+# torch.cuda.set_sync_debug_mode("error"): a host read inside it raises.
+MEGA_R, MEGA_ROUNDS, MEGA_Q = 4, 11, 2
+MEGA_LM_R, MEGA_LM_LAYERS, MEGA_LM_CUT = 2, 4, 2
+# R 1's state stays on the card for the comparison where R 2's peak (R
+# 1's) and it fit below this; it goes to one page-locked host buffer of at
+# least MEGA_POOL_BYTES otherwise (pageable copies ran about 2 GB/s)
+MEGA_KEEP_GIB = 74.0
+MEGA_POOL_BYTES = 44 * 10 ** 9
+MEGA_LM_FLAGS = ["--arch", LM_ARCH, "--seq", "64", "--batch", "8", "--q",
+                 "1", "--steps", "3"]
+MEGA_LM_MODES = [
+    ("scan", [], ("states", "server")),
+    ("scan-int8", ["--codec", "int8"], ("states", "server", "ef")),
+    ("async", ["--population", "4", "--cohort", "2", "--max-staleness", "2",
+               "--delay-model", "tiers", "--tiers", "0.5:1:1,0.5:2:3"],
+     ("state",)),
+    ("population-int8", ["--population", "2", "--cohort", "1", "--codec",
+                         "int8"], ("bank", "last_sync", "ef", "server")),
+    ("gossip", ["--population", "4", "--engine", "gossip"],
+     ("bank", "srv_bank", "ef"))]
+
+
+@contextlib.contextmanager
+def strict_chunks(torch, chunks):
+    """Run every mega-scan chunk made in the block under
+    ``torch.cuda.set_sync_debug_mode("error")``: a synchronizing operation
+    (a read back to the host) inside a chunk raises. Appends one entry to
+    ``chunks`` a chunk."""
+    import repro_torch.fed.round as fround
+    from repro_torch.fed import population, runtime
+    from repro_torch.launch import train
+    from repro_torch.tasks import driver
+    real = fround.make_multi_round
+
+    def make(round_fn):
+        multi = real(round_fn)
+
+        def run(*a, **k):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = multi(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            chunks.append(1)
+            return out
+        return run
+
+    mods = (driver, population, runtime, train)
+    for m in mods:
+        m.make_multi_round = make
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.make_multi_round = real
+
+
+def same_bits(torch, a, b):
+    """Bit for bit: equal dtypes, shapes and bytes (None equals None)."""
+    if a is None or b is None:
+        return a is None and b is None
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.reshape(-1).view(torch.uint8),
+                            b.reshape(-1).view(torch.uint8)))
+
+
+def trees_same_bits(torch, a, b):
+    from repro_torch.core.tree_util import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(same_bits(torch, x, y)
+                                      for x, y in zip(la, lb))
+
+
+def mega_driver_phase(torch, kerns, gpu):
+    """megascan-mnist: each FedDriver engine at MNIST width (hyper-
+    representation, x 1,066,240 f32 a client): scan (8 clients),
+    population int8 + EF (N 32, C 8, uniform), async int8 + EF (N 32, C 8,
+    tiers, participants), gossip ring int8 + EF (8 nodes), and the
+    population once more with the trace sampler (its cohorts staged [L, C]
+    from the host), at rounds_per_scan MEGA_R against 1: the final
+    averaged state and every part of the engine's final state (states or
+    bank, server, EF, last_sync, the async bookkeeping), the last
+    record's samples, comms and byte totals, the staleness log and
+    histograms (by tier) bit for bit, and equal launches. Prints steady
+    ms a round at both R (a record, not a claim). Returns the launches."""
+    from repro_torch.configs import PopulationConfig
+    from repro_torch.tasks import FedDriver, build_hyperrep
+
+    tasks = {n: build_hyperrep(mnist_width(n), device="cuda")
+             for n in (8, 32)}
+    int8 = dict(codec="int8", error_feedback=True)
+    runs = [
+        ("scan", 8, dict(engine="scan"), {}),
+        ("population-int8", 32, dict(population=PopulationConfig(
+            n=32, cohort=8)), int8),
+        ("async-int8-tiers", 32, dict(population=PopulationConfig(
+            n=32, cohort=8, sync_mode="participants", staleness_decay=0.5,
+            max_staleness=4, max_delay=8, delay_model="tiers",
+            delay_eta=0.5)), int8),
+        ("gossip-ring-int8", 8, dict(engine="gossip",
+                                     population=PopulationConfig(
+                                         n=8, cohort=8, topology="ring")),
+         int8),
+        ("population-trace", 32, dict(population=PopulationConfig(
+            n=32, cohort=8, sampler="trace")), {})]
+    launches = {}
+    steps = MEGA_ROUNDS * MEGA_Q
+    for name, n, kw, codec in runs:
+        task = tasks[n]
+        fed = dataclasses.replace(mnist_width(n).fed, q=MEGA_Q, **codec)
+        out = {}
+        for R in (1, MEGA_R):
+            drv = FedDriver(task["problem"], fed, n, task["batch_fn"],
+                            task["init_xy"], metric_fn=task["val_loss"],
+                            rounds_per_scan=R, device="cuda", **kw)
+            chunks = []
+            reset_launches(kerns)
+            with strict_chunks(torch, chunks) if R > 1 else (
+                    contextlib.nullcontext()):
+                res = drv.run(steps, seed=0, eval_every=4 * MEGA_Q)
+            torch.cuda.synchronize()
+            counts = launch_counts(kerns)
+            add_counts(launches, counts)
+            out[R] = (drv, res, counts, chunks)
+        (d1, r1, c1, _), (d4, r4, c4, chunks) = out[1], out[MEGA_R]
+        same = (trees_same_bits(torch, r1.final_avg_state,
+                                r4.final_avg_state)
+                and sorted(d1.final_state) == sorted(d4.final_state)
+                and all(trees_same_bits(torch, d1.final_state[k],
+                                        d4.final_state[k])
+                        for k in d1.final_state))
+        for f in ("samples", "comms", "bytes_up", "bytes_down", "metric"):
+            same &= getattr(r1, f)[-1] == getattr(r4, f)[-1]
+        if hasattr(d1, "staleness_log"):
+            same &= (d1.staleness_log == d4.staleness_log
+                     and d1.staleness_hist.tolist()
+                     == d4.staleness_hist.tolist()
+                     and {k: v.tolist() for k, v in
+                          d1.staleness_hist_by_tier.items()}
+                     == {k: v.tolist() for k, v in
+                         d4.staleness_hist_by_tier.items()})
+        n_chunks = len(chunks)
+        print(f"megascan-mnist {name}: {MEGA_ROUNDS} rounds of q {MEGA_Q}, "
+              f"R {MEGA_R} equals R 1 bit for bit: {same}; launches "
+              f"{c4} (R 1: {c1}); {n_chunks} chunks under sync debug mode "
+              f"'error'; steady ms a round R 1 {steady_ms(d1):.2f}, "
+              f"R {MEGA_R} {steady_ms(d4):.2f} ({gpu}); samples "
+              f"{r4.samples[-1]}, comms {r4.comms[-1]}, bytes "
+              f"{r4.bytes_up[-1]}/{r4.bytes_down[-1]}", flush=True)
+        if not same:
+            raise AssertionError(f"megascan-mnist {name}: R {MEGA_R} "
+                                 f"differs from R 1")
+        if c4 != c1 or not any(c4.values()) or n_chunks == 0:
+            raise AssertionError(f"megascan-mnist {name}: launches {c4} "
+                                 f"against {c1}, {n_chunks} chunks")
+        del out, d1, d4, r1, r4
+    return launches
+
+
+class StateKeeper:
+    """Where megascan-lm keeps R 1's state for the comparison with R 2's:
+    on the card where R 2's peak (R 1's) and it fit under MEGA_KEEP_GIB,
+    else in one page-locked host buffer that every mode reuses, else, if
+    the buffer cannot be pinned, in pageable host memory."""
+
+    def __init__(self, torch):
+        self.torch, self.pool = torch, None
+
+    def keep(self, state, peak_gib):
+        """``(where, kept)``: R 1's ``state`` kept for the comparison."""
+        from repro_torch.core.tree_util import tree_leaves, tree_map
+        torch = self.torch
+        sizes = [-(-t.numel() * t.element_size() // 256) * 256
+                 for t in tree_leaves(state) if t is not None]
+        if peak_gib + sum(sizes) / 2 ** 30 <= MEGA_KEEP_GIB:
+            return "card", state
+        if not self._pool(sum(sizes)):
+            return "host", tree_map(
+                lambda t: None if t is None else t.cpu(), state)
+        off = 0
+
+        def put(t):
+            nonlocal off
+            if t is None:
+                return None
+            nb = t.numel() * t.element_size()
+            view = self.pool[off:off + nb].view(t.dtype).view(t.shape)
+            view.copy_(t, non_blocking=True)
+            off += -(-nb // 256) * 256
+            return view
+        kept = tree_map(put, state)
+        torch.cuda.synchronize()
+        return "pinned host", kept
+
+    def _pool(self, nbytes) -> bool:
+        torch = self.torch
+        if self.pool is not None and self.pool.numel() >= nbytes:
+            return True
+        self.close()
+        buf = torch.empty(max(nbytes, MEGA_POOL_BYTES), dtype=torch.uint8)
+        try:
+            torch.cuda.check_error(torch.cuda.cudart().cudaHostRegister(
+                buf.data_ptr(), buf.numel(), 0))
+        except RuntimeError as e:
+            print(f"megascan-lm: the host buffer is not pinned ({e})",
+                  flush=True)
+            return False
+        self.pool = buf
+        return True
+
+    def close(self):
+        if self.pool is not None:
+            self.torch.cuda.check_error(
+                self.torch.cuda.cudart().cudaHostUnregister(
+                    self.pool.data_ptr()))
+            self.pool = None
+
+
+def mega_lm_phase(torch, kerns, gpu):
+    """megascan-lm-qwen1.5-4b: the train CLI on qwen1.5-4b at full width,
+    MEGA_LM_LAYERS layers (MEGA_LM_CUT where a run does not fit), seq 64,
+    global batch 8, 3 rounds of q 1, in each of MEGA_LM_MODES at
+    --rounds-per-scan MEGA_LM_R against 1: the returned state (the R 1
+    run's kept by a :class:`StateKeeper`), the wire totals and the async
+    log and histogram bit for bit, equal launches; prints each run's peak
+    device memory (R 2's without R 1's state beside it) and ms a round.
+    Returns the launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree_util import tree_leaves
+    from repro_torch.launch import train as train_cli
+
+    launches = {}
+    keeper = StateKeeper(torch)
+    cuts = (MEGA_LM_LAYERS, MEGA_LM_CUT)
+    for name, flags, keys in MEGA_LM_MODES:
+        for i, layers in enumerate(cuts):
+            cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=layers)
+            try:
+                rows = {}
+                host = None
+                for R in (1, MEGA_LM_R):
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                    if R == 1:
+                        base = torch.cuda.memory_allocated()
+                    reset_launches(kerns)
+                    chunks = []
+                    argv = MEGA_LM_FLAGS + flags + ["--rounds-per-scan",
+                                                    str(R)]
+                    with strict_chunks(torch, chunks) if R > 1 else (
+                            contextlib.nullcontext()):
+                        out = train_cli.main(argv, cfg=cfg)
+                    torch.cuda.synchronize()
+                    counts = launch_counts(kerns)
+                    add_counts(launches, counts)
+                    rows[R] = dict(peak=peak_gib(torch), counts=counts,
+                                   chunks=len(chunks),
+                                   ms=[round(1e3 * x, 1)
+                                       for x in out["seconds"]],
+                                   **{k: out.get(k) for k in (
+                                       "step", "bytes_up", "bytes_down",
+                                       "log")})
+                    state = {k: out[k] for k in keys}
+                    hist = out.get("hist")
+                    del out
+                    c0 = time.time()
+                    if R == 1:
+                        where, kept = keeper.keep(state, rows[R]["peak"])
+                        host = (kept, hist)
+                        del state, kept
+                        rows[R]["copy_s"] = time.time() - c0
+                        rows[R]["kept"] = where
+                        beside = (torch.cuda.memory_allocated()
+                                  - base) / 2 ** 30
+                        continue
+                    rows[R]["peak"] -= beside
+                    # each kept leaf on the card, one at a time
+                    same = all(same_bits(torch, g, None if w is None
+                                         else w.to(g.device))
+                               for g, w in zip(tree_leaves(state),
+                                               tree_leaves(host[0])))
+                    same &= len(tree_leaves(state)) == len(tree_leaves(
+                        host[0]))
+                    rows[R]["copy_s"] = time.time() - c0
+                    del state
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                if i == len(cuts) - 1:
+                    raise
+                why = str(e).splitlines()[0][:120]
+            # out of the except block, so that its traceback's frames (and
+            # their tensors) are gone
+            state = out = host = kept = None
+            print(f"megascan-lm {name}: {layers} layers do not fit "
+                  f"({why}); cut to {cuts[i + 1]} layers", flush=True)
+            free_device_memory(torch)
+        r1, r2 = rows[1], rows[MEGA_LM_R]
+        for k in ("step", "bytes_up", "bytes_down", "log"):
+            same &= r1[k] == r2[k]
+        if host[1] is not None:
+            same &= hist.tolist() == host[1].tolist()
+        print(f"megascan-lm-{LM_ARCH} {name} ({layers} layers, {flags}, "
+              f"seq 64, batch 8, 3 rounds of q 1): R {MEGA_LM_R} equals R 1 "
+              f"bit for bit: {same}; launches {r2['counts']} (R 1: "
+              f"{r1['counts']}); {r2['chunks']} chunks under sync debug "
+              f"mode 'error'; peak {r1['peak']:.2f} GiB at R 1, "
+              f"{r2['peak']:.2f} at R {MEGA_LM_R}; ms a round R 1 "
+              f"{r1['ms']}, R {MEGA_LM_R} {r2['ms']} ({gpu}); R 1's state "
+              f"kept on the {r1['kept']} in {r1['copy_s']:.1f} s, compared "
+              f"in {r2['copy_s']:.1f} s", flush=True)
+        if not same:
+            raise AssertionError(f"megascan-lm {name}: R {MEGA_LM_R} "
+                                 f"differs from R 1")
+        if (r2["counts"] != r1["counts"] or not any(r2["counts"].values())
+                or r2["chunks"] == 0):
+            raise AssertionError(f"megascan-lm {name}: launches "
+                                 f"{r2['counts']} against {r1['counts']}, "
+                                 f"{r2['chunks']} chunks")
+        del host
+        free_device_memory(torch)
+    keeper.close()
+    return launches
+
+
+def megascan_phases(torch, kerns):
+    """The mega-scan slice's phases (ROADMAP 2a); returns their
+    launches."""
+    gpu = gpu_line()
+    launches = {}
+    for phase, fn in (("megascan-mnist", mega_driver_phase),
+                      ("megascan-lm", mega_lm_phase)):
+        t0 = time.time()
+        add_counts(launches, fn(torch, kerns[:2], gpu))
+        print(f"{phase}: {time.time() - t0:.1f} s (at "
+              f"{time.time() - START:.1f} s)", flush=True)
+        free_device_memory(torch)
+    return launches
+
+
 def x_tree(torch, cfg, gen, n_layers=None):
     """qwen1.5-4b's x tree (its backbone leaves: bf16, the norms f32) as
     normal draws on the card, cut to ``n_layers`` if given."""
@@ -4462,6 +4834,8 @@ def main() -> int:
     add_counts(launches, encdec_phases(torch, kerns))
     # the mesh and the telemetry (ROADMAP 1f and 2b)
     add_counts(launches, mesh_obs_phases(torch, kerns))
+    # the mega-scan tier (ROADMAP 2a)
+    add_counts(launches, megascan_phases(torch, kerns))
 
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCES[name],

@@ -37,6 +37,10 @@ cohort-only core: the caller gathers the C rows and writes them back
 (:class:`repro_torch.fed.spill.HostSpillBank` keeps the N rows in host
 memory). Both builders run the same steps and aggregate
 (:func:`_round_pieces`).
+
+The mega-scan tier runs R rounds as one call:
+:func:`make_multi_population_round` and :func:`make_multi_async_round`
+(:func:`repro_torch.fed.round.make_multi_round`).
 """
 from __future__ import annotations
 
@@ -51,6 +55,7 @@ from repro_torch import device as devices
 from repro_torch.configs.base import DELAY_MODELS, validate_delay_model
 from repro_torch.core.tree_util import (take, tree_bcast_axis0, tree_leaves,
                                         tree_map)
+from repro_torch.fed.round import make_multi_round
 from repro_torch.fed.topology import as_aggregator, weighted_mean
 
 SYNC_MODES = ("broadcast", "participants")
@@ -804,3 +809,76 @@ def make_async_round(local_step_ids: Callable, sync_update: Callable,
         return state, stats
 
     return round_fn
+
+
+# ------------------------------------------------------------ mega-scan tier
+#
+# R whole rounds as one call (repro_torch.fed.round.make_multi_round). The
+# round functions above derive everything round-dependent (staleness
+# weights, last_sync stamps, delay schedules) from their round_id, so a
+# chunk only threads the carry and hands each round its slice of the
+# staged inputs.
+
+def make_multi_population_round(round_fn: Callable, *,
+                                lossy: bool) -> Callable:
+    """R synchronous population rounds as one call.
+
+    ``round_fn`` is what :func:`make_population_round` returned (``lossy``
+    says whether it threads the EF bank and the noise). Returns
+    ``multi(bank_states, last_sync[, ef_bank], server, ids_R, batches_R,
+    draws_R, round0[, noise_R]) -> (bank_states, last_sync[, ef_bank],
+    server)`` after rounds ``round0 .. round0 + R - 1``: ``ids_R`` [R, C],
+    ``batches_R`` each round's
+    ``batches_q`` on a new leading R axis, ``draws_R`` the [R, q, C]
+    Neumann depths and ``noise_R`` a list of the rounds' int8 noise
+    sources (None: none). Equal to R sequential ``round_fn`` calls bit for
+    bit."""
+    def taken(carry):
+        # every dict of the carry taken, as the round takes the bank's: a
+        # chunk holds no round's input past the round
+        return tuple(take(c) if isinstance(c, dict) else c for c in carry)
+
+    if lossy:
+        def one(carry, ids, batches_q, dr, round_id):
+            draws_q, u = dr
+            return round_fn(*taken(carry), ids, batches_q, draws_q,
+                            round_id, u), None
+
+        multi = make_multi_round(one)
+
+        def mega(bank_states, last_sync, ef_bank, server, ids_R, batches_R,
+                 draws_R, round0, noise_R=None):
+            carry, _ = multi((bank_states, last_sync, ef_bank, server),
+                             ids_R, batches_R, (draws_R, noise_R), round0)
+            return carry
+        return mega
+
+    def one(carry, ids, batches_q, draws_q, round_id):
+        return round_fn(*taken(carry), ids, batches_q, draws_q,
+                        round_id), None
+
+    multi = make_multi_round(one)
+
+    def mega(bank_states, last_sync, server, ids_R, batches_R, draws_R,
+             round0):
+        carry, _ = multi((bank_states, last_sync, server), ids_R, batches_R,
+                         draws_R, round0)
+        return carry
+    return mega
+
+
+def make_multi_async_round(round_fn: Callable) -> Callable:
+    """R asynchronous rounds (:func:`make_async_round`'s) as one call:
+    ``multi(state, ids_R, batches_R, draws_R, round0, noise_R=None) ->
+    (state, stats_R)``, every stats field stacked on a new leading R axis.
+    The async round is uniform in ``round_id`` (round 0 is not special),
+    so a run chunks from round 0."""
+    def one(state, ids, batches_q, dr, round_id):
+        draws_q, u = dr
+        return round_fn(state, ids, batches_q, draws_q, round_id, u)
+
+    multi = make_multi_round(one)
+
+    def mega(state, ids_R, batches_R, draws_R, round0, noise_R=None):
+        return multi(state, ids_R, batches_R, (draws_R, noise_R), round0)
+    return mega

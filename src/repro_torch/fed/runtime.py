@@ -54,8 +54,12 @@ applied where the launcher places a bank (:func:`repro_torch.sharding.
 device_put`). A mesh over more than one physical device raises at
 construction (ROADMAP item 1j).
 
-Not ported, and raising ``NotImplementedError`` naming their ROADMAP item:
-the multi-round (mega-scan) builders (2a).
+The mega-scan builders (``multi_population_round_fn``,
+``multi_async_population_round_fn``, ``multi_gossip_round_fn``) run R
+whole rounds of the population, async and gossip builders as one call
+(:func:`repro_torch.fed.round.make_multi_round`): their inputs staged on
+the device with a leading R axis, nothing read back inside the call, equal
+to R single rounds bit for bit.
 """
 from __future__ import annotations
 
@@ -76,7 +80,10 @@ from repro_torch.core.tree_util import (take, tree_bcast_axis0, tree_index,
 from repro_torch.fed.compress import codec_from_config
 from repro_torch.fed.population import (init_async_state, make_async_round,
                                         make_cohort_round,
+                                        make_multi_async_round,
+                                        make_multi_population_round,
                                         make_population_round)
+from repro_torch.fed.round import make_multi_round
 from repro_torch.fed.spill import HostSpillBank
 from repro_torch.fed.topology import (GossipAggregator, StarAggregator,
                                       make_gossip_round)
@@ -224,11 +231,6 @@ def round_depths(depths: NeumannDraws, r: int, q: int,
     synchronous run would have."""
     return torch.stack([depths.step(r * (q + 1) + j).index_select(0, ids)
                         for j in range(q)])
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP item "
-                              f"{item}")
 
 
 # ------------------------------------------------------------------ trainer
@@ -712,15 +714,50 @@ class FederatedTrainer:
             q if q is not None else self.fed.q,
             staleness_decay=staleness_decay, codec=self.codec)
 
-    # -------------------------------------------------- not ported
+    # -------------------------------------------------- mega-scan tier
 
-    def multi_population_round_fn(self, n: int, q: Optional[int] = None,
-                                  **kw):
-        _not_ported("the LM multi-round (mega-scan)", "2a (mega-scan)")
+    def multi_population_round_fn(self, n: int, q: Optional[int] = None, *,
+                                  sync_mode: str = "broadcast",
+                                  staleness_decay: float = 0.0) -> Callable:
+        """R rounds of :meth:`population_round_fn` as one call
+        (:func:`repro_torch.fed.population.make_multi_population_round`):
+        ``multi(bank, last_sync[, ef_bank], server, ids_R, batches_R, k_R,
+        round0[, noise_R])``, ``ids_R`` the [R, C] cohorts, ``batches_R``
+        each round's ``batches_q`` on a new leading R axis, ``k_R`` the [R, q, C] depths and ``noise_R`` the
+        rounds' int8 noise sources (a list, or None)."""
+        return make_multi_population_round(
+            self.population_round_fn(n, q, sync_mode=sync_mode,
+                                     staleness_decay=staleness_decay),
+            lossy=self.codec.lossy)
 
     def multi_async_population_round_fn(self, n: int,
-                                        q: Optional[int] = None, **kw):
-        _not_ported("the LM multi-round (mega-scan)", "2a (mega-scan)")
+                                        q: Optional[int] = None,
+                                        **async_opts) -> Callable:
+        """R rounds of :meth:`async_population_round_fn` as one call:
+        ``multi(state, ids_R, batches_R, k_R, round0, noise_R=None) ->
+        (state, stats_R)``, the per-round stats stacked on a new leading R
+        axis. ``async_opts`` forwards the async knobs."""
+        return make_multi_async_round(
+            self.async_population_round_fn(n, q, **async_opts))
 
-    def multi_gossip_round_fn(self, n: int, q: Optional[int] = None, **kw):
-        _not_ported("the LM multi-round (mega-scan)", "2a (mega-scan)")
+    def multi_gossip_round_fn(self, n: int, q: Optional[int] = None,
+                              **topo_opts) -> Callable:
+        """R rounds of :meth:`gossip_round_fn`, each with its opening mix,
+        as one call: ``multi(bank, srv_bank, ef, batches_R, k_R, round0,
+        noise_R=None) -> (bank, srv_bank, ef)``. Round 0 (no mix to run)
+        is the caller's to peel off with ``sync_first=False`` on the
+        single round. A time-varying graph is drawn from each round's
+        absolute id."""
+        round_fn = self.gossip_round_fn(n, q, **topo_opts)
+
+        def one(carry, _, batches_q, dr, round_id):
+            k_q, u = dr
+            return round_fn(*carry, batches_q, k_q, round_id, u), None
+
+        multi = make_multi_round(one)
+
+        def mega(bank, srv_bank, ef, batches_R, k_R, round0, noise_R=None):
+            carry, _ = multi((bank, srv_bank, ef), None, batches_R,
+                             (k_R, noise_R), round0)
+            return carry
+        return mega

@@ -309,6 +309,24 @@ class TraceFileSampler(CohortSampler):
                                    self.scores(round_id), self.c)
 
 
+def in_scan_cohort_fn(sampler: CohortSampler):
+    """The sampler's ``round_id -> ids`` draw where a mega-scan chunk
+    could make it itself, as the reference's: ``sampler.cohort`` for the
+    uniform and roundrobin samplers, whose cohorts are functions of (seed,
+    round) alone, and None for the trace samplers, which read an
+    availability table a round.
+
+    The port's draws are on the host either way (a ``torch.Generator`` on
+    the CPU), and the driver and the launcher need the ids there for the
+    batches and the unique-transmitter bill, so they draw a chunk's
+    cohorts before it starts and stage them as one ``[R, C]`` tensor (the
+    reference's route for the trace samplers): the ids an in-chunk draw
+    would give, without a copy to the card inside the chunk."""
+    if isinstance(sampler, (UniformSampler, RoundRobinSampler)):
+        return sampler.cohort
+    return None
+
+
 def make_sampler(name: str, n: int, c: int, seed: int = 0, *,
                  period: int = 8, duty: float = 0.5, offset: int = 0,
                  trace_file: str = None) -> CohortSampler:

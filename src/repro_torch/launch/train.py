@@ -47,9 +47,18 @@ bit for bit. Its stat ring keeps one client mean of the states on the
 device (one state row: 13.54 GiB for qwen1.5-4b at 36 layers, which fits
 an 80 GB card with it; at 40 the run does not).
 
-The flags are the JAX launcher's. ``--rounds-per-scan`` above 1 needs a
-part of the port still to come and raises ``NotImplementedError`` naming
-ROADMAP item 2a.
+The flags are the JAX launcher's. The scan engine and the population,
+async and gossip modes run their rounds in chunks of up to
+``--rounds-per-scan R`` (the mega-scan tier, :func:`repro_torch.fed.
+round.make_multi_round`; the default R = 1 is a chunk a round), through
+one loop (:func:`chunk_loop`): a chunk's batches, depths, cohorts and
+noise sources are staged on the device before it starts, nothing is read
+back inside it, and a run equals the R = 1 run bit for bit. Chunks start
+at the first round (on ``--resume``, the checkpoint's), the gossip mode
+peels round 0 (no mix before it) off as a single round, the stat ring
+samples once a chunk, and each round keeps its ``round`` record with the
+chunk's seconds over its rounds. ``--spill host`` and the eager engine
+refuse R above 1, as the reference's.
 """
 from __future__ import annotations
 
@@ -63,14 +72,15 @@ from repro_torch import device as devlib
 from repro_torch.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.configs import FedConfig
 from repro_torch.configs.base import DELAY_MODELS, TOPOLOGIES, ShapeConfig
-from repro_torch.core.tree_util import tree_index, tree_map, tree_stack
+from repro_torch.core.tree_util import take, tree_index, tree_map, tree_stack
 from repro_torch.data.synthetic import (FederatedLMData, TorchLMDraws,
                                         make_client_batch, make_cohort_batch)
 from repro_torch.fed import compress
 from repro_torch.fed.population import (DelayDraws, accum_staleness_hist,
                                         accum_tier_hists, make_delay_model,
                                         parse_tier_spec)
-from repro_torch.fed.round import ENGINES
+from repro_torch.fed.round import (ENGINES, chunk_calls, chunk_plan,
+                                   make_multi_round, stack_chunk_batches)
 from repro_torch.fed.runtime import (FederatedTrainer, NeumannDraws,
                                      client_batch_specs, round_depths)
 from repro_torch.fed.sampling import SAMPLERS, load_delay_trace, make_sampler
@@ -129,7 +139,9 @@ def parse_args(argv=None):
                          "decentralized rounds over --topology (needs "
                          "--population N)")
     ap.add_argument("--rounds-per-scan", type=int, default=1,
-                    help="not ported above 1 (raises): ROADMAP 2a")
+                    help="mega-scan: run up to R whole rounds as one call "
+                         "(the scan engine and the population, async and "
+                         "gossip modes; not with --spill host)")
     ap.add_argument("--population", type=int, default=0,
                     help="client population size N: keep N persistent "
                          "client states and step a sampled cohort a round "
@@ -215,9 +227,7 @@ def parse_args(argv=None):
 
 def check_ported(args) -> None:
     """``SystemExit`` for the reference's refusals of ``--spill host`` and
-    ``--rounds-per-scan``, in the reference's order, and
-    ``NotImplementedError`` for ``--rounds-per-scan`` above 1 (ROADMAP
-    2a)."""
+    ``--rounds-per-scan``, in the reference's order."""
     if args.spill != "none" and not args.population:
         raise SystemExit("--spill host spills the population bank: run "
                          "with --population N")
@@ -229,8 +239,10 @@ def check_ported(args) -> None:
                              "memory round-by-round: the mega-scan tier "
                              "needs device-resident rounds (set "
                              "--rounds-per-scan 1 or --spill none)")
-        raise NotImplementedError("--rounds-per-scan > 1 is not ported yet: "
-                                  "ROADMAP item 2a (mega-scan)")
+        if not args.population and args.engine != "scan":
+            raise SystemExit("--rounds-per-scan > 1 fuses whole rounds into "
+                             "one program: use --engine scan or a "
+                             "--population mode")
 
 
 def server_step(s: int, q: int) -> int:
@@ -339,36 +351,35 @@ def run_cli(args, cfg, fed, shape, tr: FederatedTrainer, tele=NULL):
                   f"instead of the requested {args.steps - start} "
                   f"(use --steps divisible by q={q})", flush=True)
         round0 = start // q
-        round_fn = tr.round_step_codec_fn() if lossy else tr.round_step_fn()
         noise = compress.CodecNoise(args.seed, dev)
         ids = torch.arange(tr.m, device=dev)
         acc = StatAccum.for_bus(tele, states)
-        for r in range(n_rounds):
+        multi = scan_multi_round(tr)
+
+        def stage(r, L):
             t = start + r * q
-            with tele.span("batch_build"):
-                batch_q = tree_stack([batch_of(t + j) for j in range(q)])
-                k_q = torch.stack([depths.step(server_step(t + j, q))
-                                   for j in range(q)])
-            r0 = time.time()
-            with tele.span("round_program"):
-                if lossy:
-                    u = (noise(round0 + r, ids) if tr.codec.name == "int8"
-                         else None)
-                    states, server, _, ef = round_fn(states, server, states,
-                                                     ef, batch_q, k_q, u)
-                else:
-                    states, server = round_fn(states, server, batch_q, k_q)
-                devlib.fence(dev)
-            dt = time.time() - r0
-            seconds.append(dt)
-            tele.round(r, step=t + q - 1, round_seconds=dt)
-            ring_update(tele, acc, states)
-            if r % max(args.eval_every // q, 1) == 0 or r == n_rounds - 1:
-                loss = float(ev(states, tree_index(batch_q, q - 1)))
-                losses.append(loss)
-                print(progress_line(loss=loss, elapsed=time.time() - t0,
-                                    step=t + q - 1, round=r,
-                                    round_seconds=dt), flush=True)
+            return dict(batches=stack_chunk_batches(batch_of, t, q, L),
+                        k=torch.stack([torch.stack([
+                            depths.step(server_step(t + j * q + jj, q))
+                            for jj in range(q)]) for j in range(L)]),
+                        u=[noise(round0 + r + j, ids)
+                           if tr.codec.name == "int8" else None
+                           for j in range(L)])
+
+        def run(st, r, L):
+            nonlocal states, server, ef
+            (states, server, ef), _ = multi(
+                (states, server, ef), None, st["batches"],
+                (st["k"], st["u"]), round0 + r)
+            return states, None
+
+        def account(rr, j, st, host, dt):
+            step = start + rr * q + q - 1
+            tele.round(rr, step=step, round_seconds=dt)
+            return dict(step=step)
+
+        chunk_loop(args, tr, tele, acc, ev, 0, n_rounds, losses, seconds,
+                   stage=stage, run=run, account=account)
         ring_close(tele, acc)
     else:
         local, sync = tr.local_step_fn(), tr.sync_step_fn()
@@ -393,6 +404,88 @@ def run_cli(args, cfg, fed, shape, tr: FederatedTrainer, tele=NULL):
         print(f"saved checkpoint to {args.ckpt} at step {steps_done}")
     return {"states": states, "server": server, "ef": ef,
             "step": steps_done, "losses": losses, "seconds": seconds}
+
+
+# ------------------------------------------------------------ mega-scan
+
+def scan_multi_round(tr: FederatedTrainer):
+    """The scan engine's rounds as one call a chunk: ``multi((states,
+    server, ef), None, batches_R, (k_R, noise_R), round0)``. With a lossy
+    codec the round's ``ref`` is the carried states (each round ends by
+    broadcasting the new global state), so only the EF residual rides
+    along; ``ef`` is None otherwise. Each round takes the entries out of
+    the carried dicts (as the plain round does), so a chunk holds no
+    round's input past the round."""
+    if tr.codec.lossy:
+        base = tr.round_step_codec_fn()
+
+        def one(c, _, batch_q, dr, rid):
+            states, server, ef = (take(d) for d in c)
+            states, server, _, ef = base(states, server, states, ef,
+                                         batch_q, dr[0], dr[1])
+            return (states, server, ef), None
+    else:
+        base = tr.round_step_fn()
+
+        def one(c, _, batch_q, dr, rid):
+            return base(c[0], c[1], batch_q, dr[0]) + (c[2],), None
+    return make_multi_round(one)
+
+
+def chunk_loop(args, tr: FederatedTrainer, tele, acc, ev, begin: int,
+               n_rounds: int, losses, seconds, *, stage, run, account,
+               peel_first: bool = False):
+    """The launcher's round loop over rounds ``begin .. n_rounds - 1`` in
+    chunks of up to ``--rounds-per-scan`` (round 0 alone with
+    ``peel_first``; :func:`repro_torch.fed.round.chunk_plan`); at R = 1
+    a chunk is a round. ``stage(r, L)`` builds a chunk's inputs on the
+    device (its ``batches`` [L, q, ...]), ``run(staged, r, L)`` runs its L
+    rounds as one call and returns the states the stat ring and the eval
+    read and its stacked per-round outputs (None: none), which the host
+    reads once (:func:`repro_torch.fed.round.chunk_calls`); ``account(r +
+    j, j, staged, host, dt / L)`` bills each round, writes its ``round``
+    record and returns its progress fields (``step`` among them). The stat
+    ring samples once a chunk, and the eval reads the chunk's last
+    batch."""
+    q = tr.fed.q
+    eval_rounds = max(args.eval_every // q, 1)
+    plan = chunk_plan([q] * (n_rounds - begin), q, args.rounds_per_scan,
+                      peel_first=peel_first and begin == 0)
+    t0 = time.time()
+    for r, L, staged, states, host, dt in chunk_calls(
+            [(begin + r, L) for r, L in plan], tele, tr.device,
+            stage=stage, call=run):
+        for j in range(L):
+            seconds.append(dt / L)
+            fields = account(r + j, j, staged, host, dt / L)
+        ring_update(tele, acc, states)
+        rr = r + L - 1
+        if (any((r + j) % eval_rounds == 0 for j in range(L))
+                or rr == n_rounds - 1):
+            loss = float(ev(states, tree_map(lambda x: x[-1, -1],
+                                             staged["batches"])))
+            losses.append(loss)
+            print(progress_line(loss=loss, elapsed=time.time() - t0,
+                                round=rr, round_seconds=dt / L, **fields),
+                  flush=True)
+        # a round takes its input dicts, as JAX donates buffers; what the
+        # loop still held of this chunk would stay alive beside the next
+        del states, staged
+
+
+def stage_cohorts(data, cfg, specs_c, sampler, depths, dev, r: int, L: int,
+                  q: int):
+    """A population chunk's inputs: its L cohorts drawn on the host
+    (``hosts``) and staged as one [L, C] tensor (``ids``), their [L, q,
+    ...] batches and [L, q, C] Neumann depths."""
+    hosts = [sampler.cohort(r + j) for j in range(L)]
+    ids = devlib.to_device(torch.stack(hosts), dev)
+    batches = tree_stack([tree_stack([
+        make_cohort_batch(data, cfg, specs_c, (r + j) * q + jj, hosts[j],
+                          dev) for jj in range(q)]) for j in range(L)])
+    k = torch.stack([round_depths(depths, r + j, q, ids[j])
+                     for j in range(L)])
+    return dict(hosts=hosts, ids=ids, batches=batches, k=k)
 
 
 # ------------------------------------------------------------ population
@@ -503,7 +596,6 @@ def run_population(args, cfg, fed, shape, tr: FederatedTrainer, tele=NULL):
         last_sync = device_put(last_sync, tr.bank_vector_sharding(n))
         if ef is not None:
             ef = device_put(ef, tr.population_state_shardings(n))
-    round_fn = tr.population_round_fn(n)
     ev = tr.eval_fn()
     noise = compress.CodecNoise(args.seed, dev)
     msg_b, down_b = wire_costs(tr, n)
@@ -513,47 +605,45 @@ def run_population(args, cfg, fed, shape, tr: FederatedTrainer, tele=NULL):
     print(f"population mode: N={n} clients, C={c} cohort/round "
           f"({args.sampler} sampler), rounds {start_round}..{n_rounds - 1} "
           f"of q={q}", flush=True)
-    eval_rounds = max(args.eval_every // q, 1)
     losses, seconds = [], []
     acc = StatAccum.for_bus(tele, bank)
-    t0 = time.time()
-    for r in range(start_round, n_rounds):
-        t = r * q
-        with tele.span("batch_build"):
-            ids_host = sampler.cohort(r)
-            ids = devlib.to_device(ids_host, dev)
-            batch_q = tree_stack([make_cohort_batch(data, cfg, specs_c,
-                                                    t + j, ids_host, dev)
-                                  for j in range(q)])
-            k_q = round_depths(depths, r, q, ids)
-        r0 = time.time()
-        with tele.span("round_program"):
-            if lossy:
-                u = noise(r, ids) if tr.codec.name == "int8" else None
-                bank, last_sync, ef, server = round_fn(
-                    bank, last_sync, ef, server, ids, batch_q, k_q, r, u)
-            else:
-                bank, last_sync, server = round_fn(bank, last_sync, server,
-                                                   ids, batch_q, k_q, r)
-            devlib.fence(dev)
-        dt = time.time() - r0
-        seconds.append(dt)
+    multi = tr.multi_population_round_fn(n)
+
+    def stage(r, L):
+        st = stage_cohorts(data, cfg, specs_c, sampler, depths, dev, r,
+                           L, q)
+        st["u"] = [noise(r + j, st["ids"][j]) if tr.codec.name == "int8"
+                   else None for j in range(L)]
+        return st
+
+    def run(st, r, L):
+        nonlocal bank, last_sync, ef, server
+        if lossy:
+            bank, last_sync, ef, server = multi(
+                bank, last_sync, ef, server, st["ids"], st["batches"],
+                st["k"], r, st["u"])
+        else:
+            bank, last_sync, server = multi(
+                bank, last_sync, server, st["ids"], st["batches"],
+                st["k"], r)
+        return bank, None
+
+    def account(rr, j, st, host, dt):
+        nonlocal bytes_up, bytes_down
+        ids_host = st["hosts"][j]
         # each UNIQUE cohort member uploads one codec message (a duplicate
         # id fills two aggregation slots, one client shipped one message);
         # every bank row downloads the broadcast
         bytes_up += int(np.unique(np.asarray(ids_host)).size) * msg_b
         bytes_down += n * down_b
-        tele.round(r, step=t + q - 1, round_seconds=dt, bytes_up=bytes_up,
-                   bytes_down=bytes_down)
-        ring_update(tele, acc, bank)
-        if r % eval_rounds == 0 or r == n_rounds - 1:
-            loss = float(ev(bank, tree_index(batch_q, q - 1)))
-            losses.append(loss)
-            print(progress_line(loss=loss, elapsed=time.time() - t0,
-                                step=t + q - 1, round=r, round_seconds=dt,
-                                bytes_up=bytes_up, bytes_down=bytes_down,
-                                cohort=np.asarray(ids_host).tolist()),
-                  flush=True)
+        tele.round(rr, step=rr * q + q - 1, round_seconds=dt,
+                   bytes_up=bytes_up, bytes_down=bytes_down)
+        return dict(step=rr * q + q - 1, bytes_up=bytes_up,
+                    bytes_down=bytes_down,
+                    cohort=np.asarray(ids_host).tolist())
+
+    chunk_loop(args, tr, tele, acc, ev, start_round, n_rounds, losses,
+               seconds, stage=stage, run=run, account=account)
     ring_close(tele, acc)
     print(f"wire totals ({tr.codec.name}): bytes_up={bytes_up} "
           f"bytes_down={bytes_down}", flush=True)
@@ -761,42 +851,51 @@ def run_gossip(args, cfg, fed, shape, tr: FederatedTrainer, tele=NULL):
           f"{', time-varying' if args.time_varying else ''}), "
           f"rounds {start_round}..{n_rounds - 1} of q={q}", flush=True)
     ids = torch.arange(n, device=dev)
-    eval_rounds = max(args.eval_every // q, 1)
     losses, seconds = [], []
     acc = StatAccum.for_bus(tele, bank)
-    t0 = time.time()
-    for r in range(start_round, n_rounds):
-        t = r * q
-        with tele.span("batch_build"):
-            batch_q = tree_stack([make_client_batch(data, cfg, specs_n,
-                                                    t + j, dev)
-                                  for j in range(q)])
-            k_q = round_depths(depths, r, q, ids)
-        u = noise(r, ids) if tr.codec.name == "int8" else None
-        r0 = time.time()
-        with tele.span("round_program"):
-            bank, srv_bank, ef = round_fn(bank, srv_bank, ef, batch_q, k_q,
-                                          r, u, sync_first=r > 0)
-            devlib.fence(dev)
-        dt = time.time() - r0
-        seconds.append(dt)
-        if r > 0:
-            # round r's opening mix closes round r - 1
-            edges = (static_edges if static_edges is not None
-                     else agg.edges(r - 1))
-            up, down = agg.wire_round(msg_b, down_b, edges=edges)
+    multi = tr.multi_gossip_round_fn(n, **topo)
+
+    def stage(r, L):
+        return dict(
+            batches=stack_chunk_batches(
+                lambda t: make_client_batch(data, cfg, specs_n, t, dev),
+                r * q, q, L),
+            k=torch.stack([round_depths(depths, r + j, q, ids)
+                           for j in range(L)]),
+            u=[noise(r + j, ids) if tr.codec.name == "int8" else None
+               for j in range(L)])
+
+    def run(st, r, L):
+        nonlocal bank, srv_bank, ef
+        if r == 0:
+            # round 0 has no round to close: the single round without
+            # its opening mix
+            bank, srv_bank, ef = round_fn(
+                bank, srv_bank, ef, tree_index(st["batches"], 0),
+                st["k"][0], 0, st["u"][0], sync_first=False)
+        else:
+            bank, srv_bank, ef = multi(bank, srv_bank, ef, st["batches"],
+                                       st["k"], r, st["u"])
+        return bank, None
+
+    def account(rr, j, st, host, dt):
+        nonlocal bytes_up, bytes_down
+        if rr > 0:
+            # round rr's opening mix closes round rr - 1
+            up, down = agg.wire_round(
+                msg_b, down_b, edges=(static_edges if static_edges
+                                      is not None
+                                      else agg.edges(rr - 1)))
             bytes_up += up
             bytes_down += down
-        tele.round(r, step=t + q - 1, round_seconds=dt, bytes_up=bytes_up,
-                   bytes_down=bytes_down)
-        ring_update(tele, acc, bank)
-        if r % eval_rounds == 0 or r == n_rounds - 1:
-            loss = float(ev(bank, tree_index(batch_q, q - 1)))
-            losses.append(loss)
-            print(progress_line(loss=loss, elapsed=time.time() - t0,
-                                step=t + q - 1, round=r, round_seconds=dt,
-                                bytes_up=bytes_up, bytes_down=bytes_down),
-                  flush=True)
+        tele.round(rr, step=rr * q + q - 1, round_seconds=dt,
+                   bytes_up=bytes_up, bytes_down=bytes_down)
+        return dict(step=rr * q + q - 1, bytes_up=bytes_up,
+                    bytes_down=bytes_down)
+
+    chunk_loop(args, tr, tele, acc, ev, start_round, n_rounds, losses,
+               seconds, stage=stage, run=run, account=account,
+               peel_first=True)
     ring_close(tele, acc)
     print(f"wire totals ({tr.codec.name}): bytes_up={bytes_up} "
           f"bytes_down={bytes_down}", flush=True)
@@ -835,7 +934,7 @@ def run_population_async(args, cfg, fed, shape, tr: FederatedTrainer,
         # the bank, pending buffer, EF bank and [N] vectors over the mesh's
         # client axes; the anchor and server replicate
         state = device_put(state, tr.async_state_shardings(n))
-    round_fn = tr.async_population_round_fn(
+    multi = tr.multi_async_population_round_fn(
         n, max_staleness=args.max_staleness, max_delay=args.max_delay,
         delay_eta=args.delay_eta, delay_model=dm, delay_draws=delay_draws)
     ev = tr.eval_fn()
@@ -853,27 +952,14 @@ def run_population_async(args, cfg, fed, shape, tr: FederatedTrainer,
     hist_by_tier = {}
     msg_b, down_b = wire_costs(tr, n)
     bytes_up = bytes_down = 0
-    eval_rounds = max(args.eval_every // q, 1)
     losses, seconds, log = [], [], []
     acc = StatAccum.for_bus(tele, state["bank"])
-    t0 = time.time()
-    for r in range(start_round, n_rounds):
-        t = r * q
-        with tele.span("batch_build"):
-            ids_host = sampler.cohort(r)
-            ids = devlib.to_device(ids_host, dev)
-            batch_q = tree_stack([make_cohort_batch(data, cfg, specs_c,
-                                                    t + j, ids_host, dev)
-                                  for j in range(q)])
-            k_q = round_depths(depths, r, q, ids)
-        u = noise(r, ids) if tr.codec.name == "int8" else None
-        r0 = time.time()
-        with tele.span("round_program"):
-            state, stats = round_fn(state, ids, batch_q, k_q, r, u)
-            devlib.fence(dev)
-        dt = time.time() - r0
-        seconds.append(dt)
-        host = {k: v.cpu().numpy() for k, v in stats.items()}
+
+    def note_round(r, host, dt):
+        """One round's stats, read to the host: the staleness histograms,
+        the log row, the wire bill and the round record. Returns the
+        row."""
+        nonlocal hist, bytes_up, bytes_down
         stale = host["staleness"]
         if (stale >= 0).any():
             hist = accum_staleness_hist(hist, stale[stale >= 0])
@@ -889,20 +975,32 @@ def run_population_async(args, cfg, fed, shape, tr: FederatedTrainer,
         # downlink per row that received the new global model
         bytes_up += row["arrived"] * msg_b
         bytes_down += row["synced"] * down_b
-        tele.round(r, step=t + q - 1, round_seconds=dt, bytes_up=bytes_up,
-                   bytes_down=bytes_down, **row)
-        ring_update(tele, acc, state["bank"])
-        if r % eval_rounds == 0 or r == n_rounds - 1:
-            loss = float(ev(state["bank"], tree_index(batch_q, q - 1)))
-            losses.append(loss)
-            print(progress_line(loss=loss, elapsed=time.time() - t0,
-                                step=t + q - 1, round=r, round_seconds=dt,
-                                arrived=row["arrived"],
-                                dropped=row["dropped"],
-                                mean_staleness=row["mean_staleness"],
-                                eta_scale=row["eta_scale"],
-                                bytes_up=bytes_up, bytes_down=bytes_down),
-                  flush=True)
+        tele.round(r, step=r * q + q - 1, round_seconds=dt,
+                   bytes_up=bytes_up, bytes_down=bytes_down, **row)
+        return row
+
+    def stage(r, L):
+        st = stage_cohorts(data, cfg, specs_c, sampler, depths, dev, r,
+                           L, q)
+        st["u"] = [noise(r + j, st["ids"][j]) if tr.codec.name == "int8"
+                   else None for j in range(L)]
+        return st
+
+    def run(st, r, L):
+        nonlocal state
+        state, stats_R = multi(state, st["ids"], st["batches"], st["k"],
+                               r, st["u"])
+        return state["bank"], stats_R
+
+    def account(rr, j, st, host, dt):
+        row = note_round(rr, {k: v[j] for k, v in host.items()}, dt)
+        return dict(step=rr * q + q - 1, bytes_up=bytes_up,
+                    bytes_down=bytes_down, **{k: row[k] for k in (
+                        "arrived", "dropped", "mean_staleness",
+                        "eta_scale")})
+
+    chunk_loop(args, tr, tele, acc, ev, start_round, n_rounds, losses,
+               seconds, stage=stage, run=run, account=account)
     ring_close(tele, acc)
     tele.note(staleness_hist=[int(k) for k in hist])
     print(f"wire totals ({tr.codec.name}): bytes_up={bytes_up} "

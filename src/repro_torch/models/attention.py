@@ -53,8 +53,10 @@ def _grouped(q: torch.Tensor, kv_heads: int) -> torch.Tensor:
 
 
 def _scaled(q: torch.Tensor, dh: int) -> torch.Tensor:
-    """q * dh^-0.5 in q's dtype (the scale rounded to it first)."""
-    return q * torch.tensor(dh ** -0.5, dtype=q.dtype, device=q.device)
+    """q * dh^-0.5 in q's dtype (the scale rounded to it first). The scale
+    is a fill on q's device, not a copy from the host, which would wait
+    for the card."""
+    return q * torch.full((), dh ** -0.5, dtype=q.dtype, device=q.device)
 
 
 def _mask(sq: int, sk: int, causal: bool, window: Optional[int], device,

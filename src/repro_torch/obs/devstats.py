@@ -17,6 +17,12 @@ Fields (the buffer's column order):
   global_norm   ‖avg(states)‖ over every state leaf (x, y, v, w)
   update_norm   ‖avg_t − avg_{t−1}‖, the round's server update
   consensus     opt-in: Σ_θ (1/M)Σ_m ‖θ^m − θ̄‖² (Lemmas 20-21's quantity)
+
+Mega-scan chunks (``rounds_per_scan`` R) write their rows with
+:class:`ChunkStats`: a row a round, computed on the device inside the
+chunk, and one ``stats`` record a chunk with the chunk's rows. The O(N)
+consensus column stays out of a chunk (the reference keeps it out of its
+fused program): the driver refuses it with R > 1.
 """
 from __future__ import annotations
 
@@ -147,6 +153,46 @@ class StatAccum:
         self._round0 += n
         self.pending = 0
         return out
+
+
+class ChunkStats:
+    """The stat rows of a run in mega-scan chunks, as the reference's
+    ``_mega_obs``: :meth:`row` writes one round's row on the device from
+    its output states (no host read; called inside a chunk, after each
+    round), and :meth:`drain` hands a chunk's rows to the bus as one
+    ``stats`` record, ``round_start`` its first round, with one host copy.
+    Without a sink both do nothing, so a run computes no row."""
+
+    def __init__(self, tele, states):
+        if tele.sinks and tele.consensus:
+            raise ValueError(
+                "rounds_per_scan > 1 cannot fold the O(N) consensus stat "
+                "into the mega-scan program; run with rounds_per_scan=1 "
+                "or telemetry consensus=False")
+        self.tele = tele
+        self.round0 = 0
+        self._prev = None
+        if tele.sinks:
+            with torch.no_grad():
+                self._prev = _own(tree_mean_axis0(states))
+
+    def row(self, states) -> Optional[torch.Tensor]:
+        """This round's ``[2]`` row (global_norm, update_norm) on the
+        device, or None without a sink."""
+        if self._prev is None:
+            return None
+        row, _ = _row(states, self._prev, False, lambda p, a: p.copy_(a))
+        return row
+
+    def drain(self, rows: Optional[torch.Tensor], n_rounds: int) -> None:
+        """A chunk's ``[L, 2]`` rows as one ``stats`` record (one host
+        copy); ``n_rounds`` advances the next record's ``round_start``."""
+        if rows is not None:
+            arr = rows.cpu()
+            self.tele.stats(round_start=self.round0,
+                            global_norm=[float(v) for v in arr[:, 0]],
+                            update_norm=[float(v) for v in arr[:, 1]])
+        self.round0 += n_rounds
 
 
 def ring_update(tele, acc: Optional[StatAccum], states) -> None:

@@ -65,8 +65,19 @@ round, the ``batch_build`` and ``round_program`` spans and, with a sink,
 the on-device stat rows drained every ``metrics_every`` rounds; it only
 observes, so a run with it is the run without it, bit for bit.
 
-Not ported, and raising ``NotImplementedError``: ``rounds_per_scan > 1``
-(mega-scan).
+``rounds_per_scan`` R > 1 is the mega-scan tier (:meth:`FedDriver.
+_run_chunks`): every engine but eager runs up to R whole rounds as one call
+(:func:`repro_torch.fed.round.make_multi_round`), its inputs staged on the
+device before it starts and its per-round outputs read back once a chunk,
+equal to R single rounds bit for bit. The scan, population and gossip
+engines peel round 0 (no sync before it) off as a chunk of one; the async
+engine chunks from round 0; a trailing partial round peels off in all. A
+record lands at the end of a chunk that holds an eval round or ends the
+run, each round gets its ``round`` record and a ``stats`` record drains
+a chunk's stat rows; the first chunk of each length carries the warm-up
+into ``compile_seconds``, a steady chunk adds its wall-clock over L to
+``round_seconds`` L times. With a telemetry sink asking for the consensus
+stat, R > 1 raises ``ValueError``, as the reference's.
 """
 from __future__ import annotations
 
@@ -95,11 +106,14 @@ from repro_torch.fed.population import (ClientPopulation, DelayDraws,
                                         delay_model_from_config, gather,
                                         init_async_state, make_async_round,
                                         scatter, staleness_weights)
-from repro_torch.fed.round import ENGINES, stack_round_batches
+from repro_torch.fed.round import (ENGINES, chunk_calls, chunk_plan,
+                                   make_multi_round, stack_chunk_batches,
+                                   stack_round_batches)
 from repro_torch.fed.sampling import make_sampler
 from repro_torch.fed.topology import (GossipAggregator, StarAggregator,
                                       make_gossip_round)
-from repro_torch.obs import NULL, StatAccum, ring_close, ring_update
+from repro_torch.obs import (NULL, ChunkStats, StatAccum, ring_close,
+                             ring_update)
 
 
 @dataclasses.dataclass
@@ -118,6 +132,36 @@ class RunResult:
     # cumulative wire bytes at each recorded step
     bytes_up: List[int] = dataclasses.field(default_factory=list)
     bytes_down: List[int] = dataclasses.field(default_factory=list)
+
+
+# the counters every record carries
+COUNTERS = ("samples", "comms", "bytes_up", "bytes_down")
+# the async engine's per-round arrival statistics
+ASYNC_FIELDS = ("arrived", "accepted", "dropped", "dispatched", "synced",
+                "mean_staleness", "eta_scale")
+
+
+@dataclasses.dataclass
+class Bill:
+    """A run's running counters: samples (a float in the async engine,
+    whose rounds count the dispatched share of the cohort), sync rounds
+    and the bytes on the wire. Each engine bills a round through one
+    function that its single-round loop and its chunks' accounting
+    share."""
+    samples: float
+    comms: int = 0
+    bytes_up: int = 0
+    bytes_down: int = 0
+
+    def add(self, samples, comms: int = 0, wire=(0, 0)) -> Dict[str, int]:
+        """Add a round's samples, syncs and ``(up, down)`` bytes; returns
+        the counters as a record carries them."""
+        self.samples += samples
+        self.comms += comms
+        self.bytes_up += wire[0]
+        self.bytes_down += wire[1]
+        return dict(samples=int(round(self.samples)), comms=self.comms,
+                    bytes_up=self.bytes_up, bytes_down=self.bytes_down)
 
 
 @dataclasses.dataclass
@@ -167,6 +211,8 @@ class FedDriver:
     #          (repro_torch.fed.topology); needs population= with
     #          cohort == n
     engine: str = "eager"
+    # mega-scan: up to this many whole rounds a call (every engine but
+    # eager, which calls once a step)
     rounds_per_scan: int = 1
     # a device mesh for the population, async and gossip engines' banks
     # (the masked eager and scan engines ignore it)
@@ -183,7 +229,6 @@ class FedDriver:
         if self.rounds_per_scan < 1:
             raise ValueError(f"rounds_per_scan must be >= 1, "
                              f"got {self.rounds_per_scan}")
-        self._check_ported()
         if self.mesh is not None:
             self.device = shlib.check_mesh_device(self.mesh, self.device)
         self.device = devices.resolve(self.device)
@@ -196,12 +241,9 @@ class FedDriver:
         # steady-state per-round wall-clock; the first round is reported
         # separately as RunResult.compile_seconds
         self.round_seconds: List[float] = []
-
-    def _check_ported(self) -> None:
-        if self.rounds_per_scan > 1:
-            raise NotImplementedError(
-                "rounds_per_scan > 1 is not ported yet: mega-scan comes "
-                "with the federated-runtime slice (slice 3)")
+        # the engine's whole state after a run (states or bank, server,
+        # EF, last_sync, ...), by name
+        self.final_state: Dict[str, Any] = {}
 
     @property
     def codec(self):
@@ -363,6 +405,17 @@ class FedDriver:
         else:
             self.round_seconds.append(dt)
 
+    def _log_chunk(self, res: RunResult, dt: float, length: int,
+                   fresh: bool):
+        """Log a mega-scan chunk's wall-clock: the first chunk of each
+        (length, steps, sync) shape carries its warm-up into
+        ``compile_seconds``; a steady chunk spreads its wall-clock evenly
+        over the ``length`` rounds it holds."""
+        if fresh:
+            res.compile_seconds += dt
+        else:
+            self.round_seconds.extend([dt / length] * length)
+
     # -------------------------------------------------- bank placement
 
     def _bank_shardings(self, tree):
@@ -417,6 +470,95 @@ class FedDriver:
         ring_close(tele, acc)
         tele.flush()
 
+    # -------------------------------------------------- mega-scan
+
+    def _run_chunks(self, lengths: List[int], eval_every: int, carry,
+                    states_of: Callable, *, stage: Callable, chunk: Callable,
+                    account: Callable, peel_first: bool = True):
+        """The mega-scan loop of every engine (``rounds_per_scan`` R > 1)
+        over the rounds ``lengths``, from ``carry``. Per chunk of L rounds
+        from round r (:func:`repro_torch.fed.round.chunk_plan`,
+        :func:`repro_torch.fed.round.chunk_calls`):
+
+          * ``stage(r, L, t, n_steps)`` stages its inputs on the device
+            (``batch_build``), t its first step;
+          * ``chunk(carry, staged, r, n_steps, sync_first, stats)`` runs the
+            L rounds as one call (``round_program``) and returns ``(carry,
+            (rows, extra))``: the stat rows of ``stats`` (a
+            :class:`repro_torch.obs.ChunkStats`) and the engine's own
+            per-round outputs, each stacked [L, ...] or None; nothing is
+            read back inside it;
+          * the host reads ``extra`` once, and ``account(r + j, j, staged,
+            host)`` bills round r + j (the engine's bill, which its R = 1
+            loop calls too) and returns its counters (:data:`COUNTERS` and
+            any fields of its ``round`` record).
+
+        ``states_of(carry)`` is the state tree the stat rows and the
+        records read. Returns ``(res, carry)``.
+
+        R = 1 keeps each engine's single-round loop, as the reference
+        keeps its ``R <= 1`` branch: there the first round alone carries
+        the warm-up into ``compile_seconds`` (here the first chunk of each
+        shape does), and the stat ring drains every ``metrics_every``
+        rounds, the consensus stat with it (here a ``stats`` record a
+        chunk, and no consensus)."""
+        q = self.alg.fed.q
+        tele = self.telemetry
+        stats = ChunkStats(tele, states_of(carry))
+        eval_rounds = max(eval_every // q, 1)
+        n_rounds = len(lengths)
+        first = np.cumsum([0] + lengths).tolist()   # each round's first step
+        res = RunResult(self.alg.name, [], [], [], [], [], 0.0)
+        seen = set()
+
+        def shape(r):
+            return lengths[r], r > 0 or not peel_first
+
+        def call(staged, r, L):
+            nonlocal carry
+            carry, (rows, extra) = chunk(carry, staged, r, *shape(r), stats)
+            return rows, extra
+
+        t0 = time.time()
+        for r, L, staged, rows, host, dt in chunk_calls(
+                chunk_plan(lengths, q, self.rounds_per_scan,
+                           peel_first=peel_first), tele, self.device,
+                stage=lambda r, L: stage(r, L, first[r], lengths[r]),
+                call=call):
+            self._log_chunk(res, dt, L, (L,) + shape(r) not in seen)
+            seen.add((L,) + shape(r))
+            for j in range(L):
+                fields = account(r + j, j, staged, host)
+                tele.round(r + j, step=first[r + j + 1] - 1,
+                           round_seconds=dt / L, **fields)
+            stats.drain(rows, L)
+            if (any((r + j) % eval_rounds == 0 for j in range(L))
+                    or r + L == n_rounds):
+                self._record(res, states_of(carry), first[r + L] - 1,
+                             *(fields[k] for k in COUNTERS))
+            del staged, rows
+        res.seconds = time.time() - t0
+        return res, carry
+
+    def _stage_cohorts(self, r: int, L: int, t: int, n_steps: int, draws,
+                       noise):
+        """A population chunk's staged inputs: the host draws its L cohorts
+        (``hosts``, for the batches and the bill) and stages them as one
+        [L, C] tensor (``ids``), the cohorts' [L, n_steps, ...] batches,
+        their [L, n_steps, C] Neumann depths and the rounds' int8 noise
+        sources."""
+        hosts = [self._run_sampler.cohort(rr) for rr in range(r, r + L)]
+        ids = self._on_device(torch.stack(hosts))
+        batches = tree_stack([tree_stack([
+            self.batches(t + j * n_steps + jj, hosts[j])
+            for jj in range(n_steps)]) for j in range(L)])
+        depths = torch.stack([
+            draws.steps[t + j * n_steps:t + (j + 1) * n_steps].index_select(
+                1, ids[j]) for j in range(L)])
+        return dict(hosts=hosts, ids=ids, batches=batches, draws=(
+            depths, [self._codec_noise(noise, r + j, ids[j])
+                     for j in range(L)]))
+
     # -------------------------------------------------- run loops
 
     def run(self, total_steps: int, seed: int = 0, eval_every: int = 10,
@@ -431,7 +573,6 @@ class FedDriver:
         (the async delays) to a :class:`DelayDraws` of ``seed``, and
         ``graph_draws`` (``round_id -> [n, n]`` uniform, a time-varying
         gossip graph) to a generator of ``population.topology_seed``."""
-        self._check_ported()
         draws = draws if draws is not None else self.draws(total_steps, seed)
         if tuple(draws.init.shape) != (self.n_clients,) or (
                 draws.steps.shape[0] < total_steps
@@ -521,6 +662,7 @@ class FedDriver:
                 eval_s += time.time() - e0
         res.seconds = time.time() - t0
         self._obs_end(acc)
+        self.final_state = dict(states=states, server=server, ref=ref, ef=ef)
         res.final_avg_state = tree_mean_axis0(states)
         return res
 
@@ -540,16 +682,60 @@ class FedDriver:
         q = fed.q
         m = self.n_clients
         states, server = self.init_run(seed, draws)
-        samples = fed.q * (fed.neumann_k + 2)
-        comms = 0
         agg = self._aggregator()
         msg_b, down_b = wire_costs(self.codec, states)
-        bytes_up = bytes_down = 0
+        ctr = Bill(fed.q * (fed.neumann_k + 2))
         ref, ef = states, zeros_ef(self.codec, states)
         ids = torch.arange(m, device=self.device)
 
+        def bill(r, n_steps, mask_prev):
+            """Round r's bill: its local steps and, past round 0, the sync
+            closing round r - 1 (its transmitters up, every client
+            down)."""
+            if r == 0:
+                return ctr.add(n_steps * (fed.neumann_k + 2))
+            return ctr.add(n_steps * (fed.neumann_k + 2), 1, agg.wire_round(
+                msg_b, down_b, tx=self._transmitters(mask_prev), rx=m))
+
         full, rem = divmod(total_steps, q)
         lengths = [q] * full + ([rem] if rem else [])
+        if self.rounds_per_scan > 1:
+            def stage(r, L, t, n_steps):
+                rounds = range(r, r + L)
+                cur = [self._active_mask(rr) for rr in rounds]
+                # round 0 has no preceding sync: no mask(-1) is drawn
+                prev = [self._active_mask(rr - 1) if rr > 0 else c
+                        for rr, c in zip(rounds, cur)]
+                masks = (None if cur[0] is None else (
+                    self._on_device(torch.stack(prev)),
+                    self._on_device(torch.stack(cur))))
+                return dict(prev=prev, masks=masks, batches=(
+                    stack_chunk_batches(self.batches, t, n_steps, L)),
+                    draws=(draws.steps[t:t + L * n_steps].reshape(
+                        L, n_steps, m),
+                        [self._codec_noise(noise, rr - 1, ids) if rr > 0
+                         else None for rr in rounds]))
+
+            def chunk(carry, st, r, n_steps, sync_first, stats):
+                def one(c, masks, batches_q, dr, rid):
+                    prev, cur = masks if masks is not None else (None, None)
+                    c = self.round_segment(
+                        *c, batches_q, dr[0], dr[1], n_steps=n_steps,
+                        sync_first=sync_first, active=cur, active_prev=prev)
+                    return c, (stats.row(c[0]), None)
+                return make_multi_round(one)(carry, st["masks"],
+                                             st["batches"], st["draws"], r)
+
+            res, (states, server, ref, ef) = self._run_chunks(
+                lengths, eval_every, (states, server, ref, ef),
+                lambda c: c[0], stage=stage, chunk=chunk,
+                account=lambda rr, j, st, host: bill(rr, lengths[rr],
+                                                     st["prev"][j]))
+            self._obs_end(None)
+            self.final_state = dict(states=states, server=server, ref=ref,
+                                    ef=ef)
+            res.final_avg_state = tree_mean_axis0(states)
+            return res
         eval_rounds = max(eval_every // q, 1)
         tele = self.telemetry
         acc = self._obs_begin(states)
@@ -576,20 +762,13 @@ class FedDriver:
             dt = time.time() - r0
             self._log_round(res, dt)
             t += n_steps
-            samples += n_steps * (fed.neumann_k + 2)
-            if r > 0:
-                comms += 1
-                up, down = agg.wire_round(
-                    msg_b, down_b, tx=self._transmitters(mask_prev), rx=m)
-                bytes_up += up
-                bytes_down += down
-            self._obs_round(acc, states, r, dt, t - 1, samples, comms,
-                            bytes_up, bytes_down)
+            fields = bill(r, n_steps, mask_prev)
+            self._obs_round(acc, states, r, dt, t - 1, **fields)
             if r % eval_rounds == 0 or r == len(lengths) - 1:
-                self._record(res, states, t - 1, samples, comms, bytes_up,
-                             bytes_down)
+                self._record(res, states, t - 1, **fields)
         res.seconds = time.time() - t0
         self._obs_end(acc)
+        self.final_state = dict(states=states, server=server, ref=ref, ef=ef)
         res.final_avg_state = tree_mean_axis0(states)
         return res
 
@@ -673,18 +852,65 @@ class FedDriver:
         agg = self._aggregator()
         pop, server = self._init_population(seed, draws)
         bank, last_sync = pop.states, pop.last_sync
-        samples = fed.q * (fed.neumann_k + 2)
-        comms = 0
         msg_b, down_b = wire_costs(self.codec, bank)
-        bytes_up = bytes_down = 0
+        ctr = Bill(fed.q * (fed.neumann_k + 2))
         ef = zeros_ef(self.codec, bank)
         # the bank layout, committed up front
         bank = self._place("bank", bank)
         last_sync = self._place("last_sync", last_sync)
         ef = self._place("ef", ef)
 
+        def bill(r, n_steps, prev_host):
+            """Round r's bill: its local steps and, past round 0, the sync
+            closing round r - 1 over that round's cohort ``prev_host``.
+            The uplink bills UNIQUE transmitters: a duplicate cohort id
+            holds two aggregation slots, but one client shipped one
+            message; participants-mode downlink reaches each once."""
+            if r == 0:
+                return ctr.add(n_steps * (fed.neumann_k + 2))
+            tx = int(torch.unique(prev_host).numel())
+            return ctr.add(n_steps * (fed.neumann_k + 2), 1, agg.wire_round(
+                msg_b, down_b, tx=tx,
+                rx=(n if pcfg.sync_mode == "broadcast" else tx)))
+
         full, rem = divmod(total_steps, q)
         lengths = [q] * full + ([rem] if rem else [])
+        if self.rounds_per_scan > 1:
+            last = [None]          # the cohort of the round before a chunk
+
+            def stage(r, L, t, n_steps):
+                st = self._stage_cohorts(r, L, t, n_steps, draws, noise)
+                # the sync opening round rr bills round rr - 1's cohort
+                hosts = st["hosts"]
+                st["billed"] = [last[0] if last[0] is not None
+                                else hosts[0]] + hosts[:-1]
+                last[0] = hosts[-1]
+                return st
+
+            def chunk(carry, st, r, n_steps, sync_first, stats):
+                def one(c, ids, batches_q, dr, rid):
+                    bank, last_sync, ef, server, prev_ids = c
+                    bank, last_sync, ef, server = self.population_segment(
+                        bank, last_sync, ef, server,
+                        ids if prev_ids is None else prev_ids, ids,
+                        batches_q, dr[0], rid, dr[1], n_steps=n_steps,
+                        sync_first=sync_first)
+                    return ((bank, last_sync, ef, server, ids),
+                            (stats.row(bank), None))
+                return make_multi_round(one)(carry, st["ids"], st["batches"],
+                                             st["draws"], r)
+
+            res, (bank, last_sync, ef, server, _) = self._run_chunks(
+                lengths, eval_every, (bank, last_sync, ef, server, None),
+                lambda c: c[0], stage=stage, chunk=chunk,
+                account=lambda rr, j, st, host: bill(rr, lengths[rr],
+                                                     st["billed"][j]))
+            self._obs_end(None)
+            self.final_state = dict(bank=bank, last_sync=last_sync, ef=ef,
+                                    server=server)
+            self.final_bank = bank
+            res.final_avg_state = tree_mean_axis0(bank)
+            return res
         eval_rounds = max(eval_every // q, 1)
         tele = self.telemetry
         acc = self._obs_begin(bank)
@@ -714,26 +940,15 @@ class FedDriver:
             dt = time.time() - r0
             self._log_round(res, dt)
             t += n_steps
-            samples += n_steps * (fed.neumann_k + 2)
-            if r > 0:
-                comms += 1
-                # uplink bills UNIQUE transmitters: a duplicate cohort id
-                # holds two aggregation slots, but one client shipped one
-                # message; participants-mode downlink reaches each once
-                tx = int(torch.unique(prev_host).numel())
-                up, down = agg.wire_round(
-                    msg_b, down_b, tx=tx,
-                    rx=(n if pcfg.sync_mode == "broadcast" else tx))
-                bytes_up += up
-                bytes_down += down
+            fields = bill(r, n_steps, prev_host)
             prev_ids, prev_host = ids, ids_host
-            self._obs_round(acc, bank, r, dt, t - 1, samples, comms,
-                            bytes_up, bytes_down)
+            self._obs_round(acc, bank, r, dt, t - 1, **fields)
             if r % eval_rounds == 0 or r == len(lengths) - 1:
-                self._record(res, bank, t - 1, samples, comms, bytes_up,
-                             bytes_down)
+                self._record(res, bank, t - 1, **fields)
         res.seconds = time.time() - t0
         self._obs_end(acc)
+        self.final_state = dict(bank=bank, last_sync=last_sync, ef=ef,
+                                server=server)
         self.final_bank = bank
         res.final_avg_state = tree_mean_axis0(bank)
         return res
@@ -805,10 +1020,8 @@ class FedDriver:
         # every node starts from the same warm-adaptive server state: the
         # star engines' init, so round 0 coincides with theirs
         srv_bank = tree_bcast_axis0(server, n)
-        samples = fed.q * (fed.neumann_k + 2)
-        comms = 0
         msg_b, down_b = wire_costs(self.codec, bank)
-        bytes_up = bytes_down = 0
+        ctr = Bill(fed.q * (fed.neumann_k + 2))
         ef = zeros_ef(self.codec, bank)
         bank = self._place("bank", bank)
         srv_bank = self._place("srv_bank", srv_bank)
@@ -818,8 +1031,46 @@ class FedDriver:
         # static graphs price once; time-varying ones per round
         static_edges = None if pcfg.time_varying else agg.edges(0)
 
+        def bill(r, n_steps):
+            """Round r's bill: its local steps and, past round 0, the mix
+            closing round r - 1 over that round's edges."""
+            if r == 0:
+                return ctr.add(n_steps * (fed.neumann_k + 2))
+            edges = (static_edges if static_edges is not None
+                     else agg.edges(r - 1))
+            return ctr.add(n_steps * (fed.neumann_k + 2), 1,
+                           agg.wire_round(msg_b, down_b, edges=edges))
+
         full, rem = divmod(total_steps, q)
         lengths = [q] * full + ([rem] if rem else [])
+        if self.rounds_per_scan > 1:
+            def stage(r, L, t, n_steps):
+                return dict(batches=stack_chunk_batches(self.batches, t,
+                                                        n_steps, L),
+                            draws=(draws.steps[t:t + L * n_steps].reshape(
+                                L, n_steps, n),
+                                [self._codec_noise(noise, r + j, ids)
+                                 for j in range(L)]))
+
+            def chunk(carry, st, r, n_steps, sync_first, stats):
+                # a time-varying graph is drawn from the absolute round id
+                # inside the chunk
+                def one(c, _, batches_q, dr, rid):
+                    c = round_fn(*c, batches_q, dr[0], rid, dr[1],
+                                 n_steps=n_steps, sync_first=sync_first)
+                    return c, (stats.row(c[0]), None)
+                return make_multi_round(one)(carry, None, st["batches"],
+                                             st["draws"], r)
+
+            res, (bank, srv_bank, ef) = self._run_chunks(
+                lengths, eval_every, (bank, srv_bank, ef), lambda c: c[0],
+                stage=stage, chunk=chunk,
+                account=lambda rr, j, st, host: bill(rr, lengths[rr]))
+            self._obs_end(None)
+            self.final_state = dict(bank=bank, srv_bank=srv_bank, ef=ef)
+            self.final_bank = bank
+            res.final_avg_state = tree_mean_axis0(bank)
+            return res
         eval_rounds = max(eval_every // q, 1)
         tele = self.telemetry
         acc = self._obs_begin(bank)
@@ -840,21 +1091,13 @@ class FedDriver:
             dt = time.time() - r0
             self._log_round(res, dt)
             t += n_steps
-            samples += n_steps * (fed.neumann_k + 2)
-            if r > 0:
-                comms += 1
-                edges = (static_edges if static_edges is not None
-                         else agg.edges(r - 1))
-                up, down = agg.wire_round(msg_b, down_b, edges=edges)
-                bytes_up += up
-                bytes_down += down
-            self._obs_round(acc, bank, r, dt, t - 1, samples, comms,
-                            bytes_up, bytes_down)
+            fields = bill(r, n_steps)
+            self._obs_round(acc, bank, r, dt, t - 1, **fields)
             if r % eval_rounds == 0 or r == len(lengths) - 1:
-                self._record(res, bank, t - 1, samples, comms, bytes_up,
-                             bytes_down)
+                self._record(res, bank, t - 1, **fields)
         res.seconds = time.time() - t0
         self._obs_end(acc)
+        self.final_state = dict(bank=bank, srv_bank=srv_bank, ef=ef)
         self.final_bank = bank
         res.final_avg_state = tree_mean_axis0(bank)
         return res
@@ -890,10 +1133,8 @@ class FedDriver:
         if self.mesh is not None:
             state = self._place("state", state,
                                 self._async_state_shardings(state))
-        samples = float(fed.q * (fed.neumann_k + 2))
-        comms = 0
         msg_b, down_b = wire_costs(self.codec, pop.states)
-        bytes_up = bytes_down = 0
+        ctr = Bill(float(fed.q * (fed.neumann_k + 2)))
         self.staleness_log: List[Dict[str, float]] = []
         self.staleness_hist = np.zeros(0, np.int64)
         self.staleness_hist_by_tier: Dict[int, Any] = {}
@@ -907,8 +1148,49 @@ class FedDriver:
             delay_eta=pcfg.delay_eta, delay=dm, delay_draws=delay_draws,
             codec=self.codec)
 
+        def bill(r, n_steps, host):
+            """Round r's bill from its stats, read to the host: the
+            histograms and the log row (:meth:`_note_async_round`), the
+            dispatched share of its samples, a sync if it accepted, every
+            arrival up and every synced row down. Returns the counters and
+            the row's fields."""
+            row = self._note_async_round(r, host, tier_of,
+                                         len(pcfg.tier_fracs))
+            fields = ctr.add(
+                n_steps * (fed.neumann_k + 2) * row["dispatched"] / c,
+                int(row["accepted"] > 0),
+                agg.wire_round(msg_b, down_b, tx=row["arrived"],
+                               rx=row["synced"]))
+            return dict(fields, **{k: row[k] for k in ASYNC_FIELDS})
+
         full, rem = divmod(total_steps, q)
         lengths = [q] * full + ([rem] if rem else [])
+        if self.rounds_per_scan > 1:
+            def stage(r, L, t, n_steps):
+                return self._stage_cohorts(r, L, t, n_steps, draws, noise)
+
+            def chunk(carry, st, r, n_steps, sync_first, stats):
+                # the async round is uniform in its round id: chunks start
+                # at round 0, and the stats come back stacked [L, ...]
+                def one(state, ids, batches_q, dr, rid):
+                    state, rstats = round_fn(state, ids, batches_q, dr[0],
+                                             rid, dr[1])
+                    return state, (stats.row(state["bank"]), rstats)
+                return make_multi_round(one)(carry, st["ids"], st["batches"],
+                                             st["draws"], r)
+
+            res, state = self._run_chunks(
+                lengths, eval_every, state, lambda st: st["bank"],
+                stage=stage, chunk=chunk, peel_first=False,
+                account=lambda rr, j, st, host: bill(
+                    rr, lengths[rr], {k: v[j] for k, v in host.items()}))
+            self.telemetry.note(
+                staleness_hist=[int(k) for k in self.staleness_hist])
+            self._obs_end(None)
+            self.final_state = dict(state)
+            self.final_bank = state["bank"]
+            res.final_avg_state = tree_mean_axis0(state["bank"])
+            return res
         eval_rounds = max(eval_every // q, 1)
         tele = self.telemetry
         acc = self._obs_begin(state["bank"])
@@ -929,35 +1211,24 @@ class FedDriver:
                 devices.fence(self.device)
             dt = time.time() - r0
             self._log_round(res, dt)
-            row = self._note_async_round(r, stats, tier_of,
-                                         len(pcfg.tier_fracs))
-            comms += int(row["accepted"] > 0)
-            up, down = agg.wire_round(msg_b, down_b, tx=row["arrived"],
-                                      rx=row["synced"])
-            bytes_up += up
-            bytes_down += down
             t += n_steps
-            samples += n_steps * (fed.neumann_k + 2) * row["dispatched"] / c
-            self._obs_round(acc, state["bank"], r, dt, t - 1,
-                            int(round(samples)), comms, bytes_up, bytes_down,
-                            **{k: row[k] for k in (
-                                "arrived", "accepted", "dropped",
-                                "dispatched", "synced", "mean_staleness",
-                                "eta_scale")})
+            fields = bill(r, n_steps,
+                          {k: v.cpu().numpy() for k, v in stats.items()})
+            self._obs_round(acc, state["bank"], r, dt, t - 1, **fields)
             if r % eval_rounds == 0 or r == len(lengths) - 1:
-                self._record(res, state["bank"], t - 1, int(round(samples)),
-                             comms, bytes_up, bytes_down)
+                self._record(res, state["bank"], t - 1,
+                             *(fields[k] for k in COUNTERS))
         res.seconds = time.time() - t0
         tele.note(staleness_hist=[int(k) for k in self.staleness_hist])
         self._obs_end(acc)
+        self.final_state = dict(state)
         self.final_bank = state["bank"]
         res.final_avg_state = tree_mean_axis0(state["bank"])
         return res
 
-    def _note_async_round(self, r: int, stats, tier_of, n_tiers: int):
-        """One async round's stats on the host: the histograms and a
-        ``staleness_log`` row, which it returns."""
-        host = {k: v.cpu().numpy() for k, v in stats.items()}
+    def _note_async_round(self, r: int, host, tier_of, n_tiers: int):
+        """One async round's stats, read to the host (numpy): the
+        histograms and a ``staleness_log`` row, which it returns."""
         stale = host["staleness"]
         accepted = stale[stale >= 0]
         if accepted.size:

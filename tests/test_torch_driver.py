@@ -126,14 +126,6 @@ def _tiny_driver(**kw):
         **kw)
 
 
-@pytest.mark.parametrize("kw, later", [
-    (dict(rounds_per_scan=2), "rounds_per_scan"),
-])
-def test_unported_options_raise(kw, later):
-    with pytest.raises(NotImplementedError, match=later):
-        _tiny_driver(**kw)
-
-
 def test_engine_and_draws_are_validated():
     with pytest.raises(ValueError, match="engine"):
         _tiny_driver(engine="ring")

@@ -12,6 +12,9 @@ files collected after these (``test_train_resume.py``) import too.
 Inputs are made with numpy from a seed and handed to both packages; the
 reference's random draws (Neumann depths, the int8 codec's rounding noise,
 cohorts) are exported through numpy as the port's draw inputs.
+
+``chunks_read_nothing`` runs every mega-scan chunk under
+:class:`NoHostRead`, the CPU's stand-in for the card's sync debug mode.
 """
 from jax._src.interpreters import batching as _batching
 
@@ -19,10 +22,14 @@ if not hasattr(_batching.PrimitiveBatchersProxy, "__contains__"):
     _batching.PrimitiveBatchersProxy.__contains__ = (
         lambda self, p: p in _batching.fancy_primitive_batchers)
 
+import contextlib  # noqa: E402
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
+import pytest  # noqa: E402
 import torch  # noqa: E402
+from torch.overrides import TorchFunctionMode  # noqa: E402
 
 from repro_torch.fed.sampling import CohortSampler  # noqa: E402
 from repro_torch.interop import from_reference, to_numpy  # noqa: E402
@@ -154,6 +161,76 @@ class ReplaySampler(CohortSampler):
                                            np.int64))
 
 
+# ------------------------------------------------------------ chunks
+
+# what reads the card back to the host (or waits for it) when its tensor
+# lies on a CUDA device; boolean-mask indexing too (see NoHostRead)
+_HOST_READS = {"item", "tolist", "__bool__", "__int__", "__float__",
+               "__index__", "nonzero", "numpy", "cpu", "unique",
+               "masked_select", "bincount", "repeat_interleave", "tensor",
+               "as_tensor"}
+
+
+class NoHostRead(TorchFunctionMode):
+    """Raise on every operation that would read a CUDA tensor back to the
+    host or wait for the card: ``.item()``, ``bool``/``int``/``float`` of
+    a tensor, ``.tolist()``, ``.cpu()``, ``.numpy()``, ``nonzero``,
+    ``unique``, ``masked_select``, ``bincount``, ``repeat_interleave``
+    without ``output_size``, boolean-mask indexing, and a tensor made from
+    host data straight onto a ``device``. On the CPU it stands in for the
+    card's ``torch.cuda.set_sync_debug_mode("error")``."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = getattr(func, "__name__", "")
+        bad = name in _HOST_READS
+        if name in ("tensor", "as_tensor"):
+            bad = (not isinstance(args[0], torch.Tensor)
+                   and kwargs.get("device") is not None)
+        elif name == "repeat_interleave":
+            bad = kwargs.get("output_size") is None
+        elif name in ("__getitem__", "__setitem__") and len(args) > 1:
+            idx = args[1] if isinstance(args[1], tuple) else (args[1],)
+            bad = any(isinstance(i, torch.Tensor) and i.dtype == torch.bool
+                      for i in idx)
+        if bad:
+            raise AssertionError(f"a host read inside a chunk: {name}")
+        return func(*args, **kwargs)
+
+
+@contextlib.contextmanager
+def chunks_read_nothing(counter=None):
+    """Every mega-scan chunk built in the block (``make_multi_round``, as
+    the driver, the population builders, the trainer and the launcher
+    import it) runs under :class:`NoHostRead`; ``counter`` (a list) gets
+    one entry a chunk."""
+    import repro_torch.fed.round as fround
+    from repro_torch.fed import population, runtime
+    from repro_torch.launch import train
+    from repro_torch.tasks import driver
+    real = fround.make_multi_round
+
+    def make(round_fn):
+        multi = real(round_fn)
+
+        def run(*a, **k):
+            with NoHostRead():
+                out = multi(*a, **k)
+            if counter is not None:
+                counter.append(1)
+            return out
+        return run
+
+    mods = (driver, population, runtime, train)
+    for m in mods:
+        m.make_multi_round = make
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.make_multi_round = real
+
+
 # ------------------------------------------------------------ tests
 
 def test_shim_lets_the_reference_import():
@@ -180,6 +257,21 @@ def test_interop_carries_bfloat16_bits():
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got.float().numpy(),
                                   np.asarray(x.astype(jnp.float32)))
+
+
+def test_no_host_read_flags_the_reads_it_names():
+    x = torch.ones(3)
+    with NoHostRead():
+        torch.tensor([1, 2])                  # host data, host tensor
+        torch.as_tensor(x, device="cpu")      # no copy
+        x.repeat_interleave(2, output_size=6)
+        x[torch.tensor([0, 2])]
+        for read in (lambda: x[0].item(), lambda: bool(x[0]),
+                     lambda: x.tolist(), lambda: x.nonzero(),
+                     lambda: x[x > 0], lambda: x.cpu(),
+                     lambda: torch.tensor(0.5, device="cpu")):
+            with pytest.raises(AssertionError, match="host read"):
+                read()
 
 
 def test_reference_draws_match_reference_keys():

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``repro_torch``, and neither
-``chip_smoke.py``, ``scripts/kernel_times.py`` nor
-``scripts/lm_step_memory.py``, imports ``jax`` or the
+``chip_smoke.py``, ``scripts/kernel_times.py``,
+``scripts/lm_step_memory.py`` nor ``scripts/megascan_phases.py``,
+imports ``jax`` or the
 JAX package ``repro``; and its entry points run on the card unless the
 caller asks for the CPU."""
 import ast
@@ -16,7 +17,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                      ROOT / "scripts" / "kernel_times.py",
-                                     ROOT / "scripts" / "lm_step_memory.py"]
+                                     ROOT / "scripts" / "lm_step_memory.py",
+                                     ROOT / "scripts" / "megascan_phases.py"]
 
 
 def _forbidden(name: str) -> bool:

@@ -451,15 +451,15 @@ def test_trainer_per_leaf_path_matches_reference():
 
 def test_not_ported_builders_name_their_roadmap_item():
     _, tr = _trainers()
-    for call, item in ((lambda: tr.multi_population_round_fn(4), "2a"),
-                       (lambda: tr.multi_async_population_round_fn(4), "2a"),
-                       (lambda: tr.multi_gossip_round_fn(4), "2a")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-            call()
-    # the cohort round (2c) is ported: tests/test_torch_lm_spill.py; a
-    # mesh on one device too (tests/test_torch_mesh.py), and a mesh over
-    # several devices is ROADMAP item 1j
-    assert callable(tr.cohort_round_fn(4))
+    # the multi-round builders (2a) are ported:
+    # tests/test_torch_lm_megascan.py; the cohort round (2c) too:
+    # tests/test_torch_lm_spill.py; a mesh on one device too
+    # (tests/test_torch_mesh.py), and a mesh over several devices is
+    # ROADMAP item 1j
+    for build in (tr.multi_population_round_fn,
+                  tr.multi_async_population_round_fn,
+                  tr.multi_gossip_round_fn, tr.cohort_round_fn):
+        assert callable(build(4))
     from repro_torch.sharding import Mesh
     devs = np.empty(2, dtype=object)
     devs[:] = [CPU, torch.device("cuda", 0)]

@@ -5,8 +5,8 @@ run equals an uninterrupted one; the eager engine and the int8 codec round
 run; the population (codec none and int8), async and gossip modes run,
 bill the bytes their pricing gives and resume equal to an uninterrupted
 run, and the bridge serves a population checkpoint and refuses an async
-one; ``--rounds-per-scan`` above 1 raises naming its ROADMAP item, and
-``--spill host`` refuses what the reference's refuses;
+one; ``--spill host`` refuses what the reference's refuses
+(``--rounds-per-scan`` above 1 runs: tests/test_torch_lm_megascan.py);
 the README's flag table matches the argparse."""
 import importlib.util
 import pathlib
@@ -162,19 +162,6 @@ def test_bridge_serves_population_checkpoints_and_refuses_async(tmp_path):
     with pytest.raises(ValueError, match="async-engine checkpoints are not "
                                          "servable"):
         bridge.load_serve_params(ck, cfg, device="cpu")
-
-
-@pytest.mark.parametrize("flags,item", [
-    (["--rounds-per-scan", "2"], "2a"), (["--rounds-per-scan", "3"], "2a"),
-    (["--population", "4", "--rounds-per-scan", "2"], "2a"),
-    (["--population", "4", "--engine", "gossip", "--rounds-per-scan", "2"],
-     "2a")])
-def test_unported_flags_name_their_roadmap_item(flags, item):
-    """``--rounds-per-scan`` above 1 is the one flag still to port, in
-    every mode (``--mesh``, ``--metrics-out``, ``--metrics-every`` and
-    ``--profile`` run: tests/test_torch_mesh.py, tests/test_torch_obs.py)."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        train_cli.main(SMALL + flags)
 
 
 @pytest.mark.parametrize("flags,why", [
